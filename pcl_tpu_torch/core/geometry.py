@@ -1,7 +1,10 @@
-"""Masked geometry primitives: means, covariance and rigid alignment.
+"""Masked geometry primitives: means, covariance, 3x3 eigensystems, PCA and
+rigid alignment.
 
-Counterpart of the parts of ``pcl_tpu/core/geometry.py`` that ICP uses. The
-rotation estimator is the JAX package's own algorithm (Horn's quaternion by
+Counterpart of ``pcl_tpu/core/geometry.py`` up to ``pca``. ``eigh33`` is
+the JAX package's analytic closed form written as torch ops (not
+``torch.linalg.eigh``), so normals follow the same formula. The rotation
+estimator is the JAX package's own algorithm (Horn's quaternion by
 shifted power iteration plus Rayleigh-quotient inverse iteration), not an
 SVD: an SVD moves the transforms at the 1e-7 level and with them ICP's
 iteration counts. All functions take explicit masks or weights; padding rows
@@ -10,6 +13,7 @@ must be zero so that plain sums are masked sums.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -53,6 +57,129 @@ def mean_and_covariance(
     d = (xyz - mu[..., None, :]) * w[..., None]
     cov = torch.einsum("...ni,...nj->...ij", d, xyz - mu[..., None, :]) / den[..., None, None]
     return mu, cov, wsum
+
+
+def demean(xyz: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(xyz - centroid`` on valid rows, 0 elsewhere; ``centroid)``."""
+    mu = centroid(xyz, mask)
+    return torch.where(mask[..., None], xyz - mu[..., None, :], 0.0), mu
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _det33(B: torch.Tensor) -> torch.Tensor:
+    """Determinant of ``[..., 3, 3]`` by cofactors along the first row."""
+    return (B[..., 0, 0] * (B[..., 1, 1] * B[..., 2, 2] - B[..., 1, 2] * B[..., 2, 1])
+            - B[..., 0, 1] * (B[..., 1, 0] * B[..., 2, 2] - B[..., 1, 2] * B[..., 2, 0])
+            + B[..., 0, 2] * (B[..., 1, 0] * B[..., 2, 1] - B[..., 1, 1] * B[..., 2, 0]))
+
+
+def eigvals33(A: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of symmetric ``[..., 3, 3]``, ascending, by the analytic
+    trigonometric formula (no iteration); all equal to the mean of the
+    diagonal where the matrix is a multiple of the identity."""
+    A = 0.5 * (A + A.transpose(-1, -2))
+    q = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) / 3.0
+    B = A - q[..., None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
+    p2 = torch.sum(B * B, dim=(-2, -1)) / 6.0
+    p = torch.sqrt(torch.clamp(p2, min=_EPS))
+    r = torch.clamp(_det33(B) / torch.clamp(2.0 * p * p * p, min=_EPS), -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    e3 = q + 2.0 * p * torch.cos(phi)                            # largest
+    e1 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)     # smallest
+    e2 = 3.0 * q - e1 - e3
+    lam = torch.stack([e1, e2, e3], dim=-1)
+    return torch.where((p2 < 1e-20)[..., None], q[..., None].expand_as(lam), lam)
+
+
+def _eigvec(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of symmetric ``A`` for eigenvalue ``lam``: the
+    largest of the row cross products of ``A - lam I``, or the x axis where
+    all vanish."""
+    M = A - lam[..., None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
+    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    c01, c02, c12 = _cross(r0, r1), _cross(r0, r2), _cross(r1, r2)
+    n01 = torch.sum(c01 * c01, dim=-1)
+    n02 = torch.sum(c02 * c02, dim=-1)
+    n12 = torch.sum(c12 * c12, dim=-1)
+    best = torch.where(((n01 >= n02) & (n01 >= n12))[..., None], c01,
+                       torch.where((n02 >= n12)[..., None], c02, c12))
+    v = best / torch.sqrt(torch.clamp(torch.sum(best * best, dim=-1, keepdim=True), min=_EPS))
+    degenerate = torch.maximum(torch.maximum(n01, n02), n12) < 1e-24
+    fallback = torch.zeros_like(v)
+    fallback[..., 0] = 1.0
+    return torch.where(degenerate[..., None], fallback, v)
+
+
+def _orthogonal_complement(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unit vectors ``(a, b)`` spanning the plane orthogonal to unit ``v``
+    (Eberly's branch-free construction)."""
+    use_x = torch.abs(v[..., 0]) > torch.abs(v[..., 1])
+    inv = torch.rsqrt(torch.clamp(
+        torch.where(use_x, v[..., 0] * v[..., 0] + v[..., 2] * v[..., 2],
+                    v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]), min=_EPS))
+    zero = torch.zeros_like(inv)
+    a = torch.stack([torch.where(use_x, -v[..., 2] * inv, zero),
+                     torch.where(use_x, zero, v[..., 2] * inv),
+                     torch.where(use_x, v[..., 0] * inv, -v[..., 1] * inv)], dim=-1)
+    return a, _cross(v, a)
+
+
+def eigh33(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched symmetric 3x3 eigendecomposition, the JAX package's closed
+    form: ``(eigvals [..., 3] ascending, eigvecs [..., 3, 3])`` with
+    ``eigvecs[..., :, k]`` the unit eigenvector of ``eigvals[..., k]``. The
+    best-isolated eigenvector comes from row cross products, the other two
+    from the symmetric 2x2 problem in its orthogonal plane, so the basis is
+    orthonormal even for repeated eigenvalues."""
+    A = 0.5 * (A + A.transpose(-1, -2))
+    scale = torch.clamp(torch.amax(torch.abs(A), dim=(-2, -1)), min=_EPS)
+    As = A / scale[..., None, None]
+    lam = eigvals33(As)
+    iso_is_0 = (lam[..., 1] - lam[..., 0]) >= (lam[..., 2] - lam[..., 1])
+    v_iso = _eigvec(As, torch.where(iso_is_0, lam[..., 0], lam[..., 2]))
+    a, b = _orthogonal_complement(v_iso)
+    Aa = torch.einsum("...ij,...j->...i", As, a)
+    Ab = torch.einsum("...ij,...j->...i", As, b)
+    m00 = torch.sum(a * Aa, dim=-1)
+    m01 = torch.sum(a * Ab, dim=-1)
+    m11 = torch.sum(b * Ab, dim=-1)
+    disc = torch.sqrt(torch.clamp(0.25 * (m00 - m11) ** 2 + m01 * m01, min=0.0))
+    mu = 0.5 * (m00 + m11) - disc           # the lower eigenvalue of the plane
+    # its eigenvector in the plane, from the better-conditioned row
+    c0a, c1a = m01, mu - m00
+    c0b, c1b = mu - m11, m01
+    use_a = torch.abs(c1a) + torch.abs(c0a) >= torch.abs(c1b) + torch.abs(c0b)
+    c0 = torch.where(use_a, c0a, c0b)
+    c1 = torch.where(use_a, c1a, c1b)
+    nrm = torch.sqrt(torch.clamp(c0 * c0 + c1 * c1, min=0.0))
+    degenerate = nrm < 1e-12
+    c0 = torch.where(degenerate, 1.0, c0 / torch.clamp(nrm, min=_EPS))
+    c1 = torch.where(degenerate, 0.0, c1 / torch.clamp(nrm, min=_EPS))
+    w_lo = c0[..., None] * a + c1[..., None] * b
+    w_hi = _cross(v_iso, w_lo)
+    iso = iso_is_0[..., None]
+    V = torch.stack([torch.where(iso, v_iso, w_lo), torch.where(iso, w_lo, w_hi),
+                     torch.where(iso, w_hi, v_iso)], dim=-1)
+    return lam * scale[..., None], V
+
+
+def smallest_eigenvector33(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(unit eigenvector of the smallest eigenvalue, eigenvalues ascending)``."""
+    lam, V = eigh33(A)
+    return V[..., :, 0], lam
+
+
+def pca(xyz: torch.Tensor, mask: torch.Tensor):
+    """Masked PCA: ``(mean [3], eigenvalues [3] descending, eigenvectors
+    [3, 3] as columns, descending)``."""
+    mu, cov, _ = mean_and_covariance(xyz, mask)
+    lam, V = eigh33(cov)
+    return mu, lam.flip(-1), V.flip(-1)
 
 
 def rotation_from_cross_covariance(

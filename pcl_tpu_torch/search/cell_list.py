@@ -10,9 +10,18 @@ the rows it gathered. Buckets are either a hash of the cell coordinates
 whose out-of-grid cells map to the extra overflow row. The JAX package's
 lane-packing tricks (``_packed_sqdist``, selection matmuls) are TPU layout
 work; here the same distances, ``+inf`` sentinels and truncation flags come
-from ordinary ``[Q, S, 3]`` tensor ops.
+from ordinary ``[Q, S, 4]`` tensor ops.
 
-The kNN, radius, CSR and blocked sweeps are ported with later slices.
+The kNN and radius searches (``knn_radius``, ``radius_search``,
+``radius_count``) visit the 27 cells around each query and mask candidates
+of a bucket that an earlier offset already visited (hash collisions). Their
+k smallest come from one stable sort of the ``[Q, S]`` candidate distances
+where the JAX package runs a bitonic tournament (another TPU layout trick):
+the same distances, ascending, with the earlier slot first on a tie.
+
+Every search gathers a ``[Q, S, 4]`` candidate tensor, so each takes its
+queries in chunks of at most ``_CHUNK_SLOTS`` candidate slots
+(``_by_chunks``). The CSR and blocked sweeps are ported with later slices.
 """
 
 from __future__ import annotations
@@ -23,9 +32,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pcl_tpu_torch.search.bruteforce import smallest_k
+
 _BIG = 1e30
 _M32 = 0xFFFFFFFF
-# nn1_radius gathers at most this many candidate slots (16 B each) at once
+# a search gathers at most this many candidate slots (16 B each) at once
 _CHUNK_SLOTS = 1 << 24
 
 # the 27 neighbour offsets (dx outer, dz inner) and the 8 of the 2x2x2 block
@@ -204,6 +215,15 @@ def _decode_idx(raw: torch.Tensor) -> torch.Tensor:
     return torch.clamp(dec, max=2.0 ** 31 - 128).to(torch.int32)
 
 
+def _by_chunks(fn, queries: torch.Tensor, slots: int):
+    """``fn([B, 3] queries) -> tuple of [B, ...]`` over chunks of queries
+    that gather at most ``_CHUNK_SLOTS`` candidate slots (``slots`` per
+    query); the outputs are concatenated."""
+    step = max(1, _CHUNK_SLOTS // slots)
+    parts = [fn(queries[s:s + step]) for s in range(0, max(queries.shape[0], 1), step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def nn1_radius(
     table: CellTable,
     queries: torch.Tensor,
@@ -220,29 +240,109 @@ def nn1_radius(
     cells. Among candidates at the least distance the first slot wins, slots
     being ordered by neighbour offset and then by original index. Queries are
     processed in chunks of at most ``_CHUNK_SLOTS`` candidate slots."""
-    nq = queries.shape[0]
     n_off = 8 if compact else 27
-    step = max(1, _CHUNK_SLOTS // (n_off * table.cap))
-    parts = [_nn1_radius_chunk(table, queries[s:s + step], r, compact)
-             for s in range(0, max(nq, 1), step)]
-    idx, d2, trunc, dst = (torch.cat(p) for p in zip(*parts))
+    idx, d2, trunc, dst = _by_chunks(lambda q: _nn1_radius_chunk(table, q, r, compact),
+                                     queries, n_off * table.cap)
     if with_dst:
         return idx, d2, trunc, dst
     return idx, d2, trunc
 
 
+def _gather(table: CellTable, buckets: torch.Tensor, queries: torch.Tensor):
+    """Candidate slots ``[Q, S, 4]`` of the probed buckets and their squared
+    distances ``[Q, S]``, about 3e30 for an empty slot (the clamp keeps the
+    1e30 sentinel's square finite)."""
+    nq = queries.shape[0]
+    cand = table.data[buckets.long()].reshape(nq, buckets.shape[1] * table.cap, 4)
+    diff = torch.clamp(cand[..., :3] - queries[:, None, :], -1e15, 1e15)
+    sq = diff * diff
+    return cand, (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
+def _r2(r) -> float:
+    """The float32 square of ``r``, as the JAX package gates."""
+    return float(np.float32(r) ** 2)
+
+
 def _nn1_radius_chunk(table: CellTable, queries: torch.Tensor, r, compact: bool):
     nq = queries.shape[0]
     buckets = _neighbor_buckets(table, queries, r if compact else None)
-    cand = table.data[buckets.long()].reshape(nq, buckets.shape[1] * table.cap, 4)  # [Q, S, 4]
-    diff = torch.clamp(cand[..., :3] - queries[:, None, :], -1e15, 1e15)
-    sq = diff * diff
-    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+    cand, d2 = _gather(table, buckets, queries)
     # empty slots land near 3e30 after the clamp: restore the +inf sentinel
     d2 = torch.where(d2 < 1e29, d2, float("inf"))
     truncated = torch.any(cand[..., 3] < 0, dim=1)
-    d2 = torch.where(d2 <= float(np.float32(r) ** 2), d2, float("inf"))
+    d2 = torch.where(d2 <= _r2(r), d2, float("inf"))
     win = torch.argmin(d2, dim=1)             # the first slot at the minimum
     best_d2 = torch.gather(d2, 1, win[:, None])[:, 0]
     w = torch.gather(cand, 1, win[:, None, None].expand(nq, 1, 4))[:, 0]
     return _decode_idx(w[:, 3]), best_d2, truncated, w[:, :3]
+
+
+def _dedup_mask(table: CellTable, buckets: torch.Tensor) -> torch.Tensor:
+    """``[Q, O * cap]``: True on the slots of a bucket that an earlier offset
+    of the same query already probed (a hash collision between offsets would
+    list its points twice)."""
+    n_off = buckets.shape[1]
+    earlier = torch.ones((n_off, n_off), dtype=torch.bool, device=buckets.device).triu(1)
+    dup = ((buckets[:, :, None] == buckets[:, None, :]) & earlier).any(dim=1)
+    return dup.repeat_interleave(table.cap, dim=1)
+
+
+def _candidates(table: CellTable, buckets: torch.Tensor, queries: torch.Tensor, r=None):
+    """The 27-cell candidates of kNN and radius search: ``(d2 [Q, S],
+    idxf [Q, S] raw index lanes, truncated [Q])``, with ``+inf`` for empty,
+    out-of-radius (``r``) and duplicate slots."""
+    cand, d2 = _gather(table, buckets, queries)
+    d2 = torch.where(d2 < 1e29, d2, float("inf"))
+    idxf = cand[..., 3]
+    truncated = torch.any(idxf < 0, dim=1)
+    if r is not None:
+        d2 = torch.where(d2 <= _r2(r), d2, float("inf"))
+    d2 = torch.where(_dedup_mask(table, buckets), float("inf"), d2)
+    return d2, idxf, truncated
+
+
+def _select_k(d2: torch.Tensor, idxf: torch.Tensor, k: int):
+    """The ``k`` smallest candidates of each row, ascending, the earlier slot
+    first on a tie, and their decoded indices."""
+    dd, slot = smallest_k(d2, k)
+    return dd, _decode_idx(torch.gather(idxf, 1, slot))
+
+
+def knn_radius(table: CellTable, queries: torch.Tensor, k: int, r=None):
+    """k nearest neighbours within the 27-cell neighbourhood (exact for the
+    neighbours within ``cell_size`` when not truncated; ``r`` optionally
+    tightens the radius). Returns ``(idx [Q, k] int32, sqdist [Q, k],
+    valid [Q, k], truncated [Q])``."""
+    def chunk(q):
+        d2, idxf, truncated = _candidates(table, _neighbor_buckets(table, q), q, r)
+        dd, idx = _select_k(d2, idxf, k)
+        return idx, dd, torch.isfinite(dd), truncated
+
+    return _by_chunks(chunk, queries, 27 * table.cap)
+
+
+def radius_count(table: CellTable, queries: torch.Tensor, r):
+    """Exact in-radius neighbour count over the 27 cells (requires
+    ``cell_size >= r``; exact when no probed bucket overflows):
+    ``(count [Q] int32, truncated [Q])``."""
+    def chunk(q):
+        buckets = _neighbor_buckets(table, q)
+        cand, d2 = _gather(table, buckets, q)
+        inside = (d2 <= _r2(r)) & ~_dedup_mask(table, buckets)
+        return (torch.sum(inside, dim=1, dtype=torch.int32),
+                torch.any(cand[..., 3] < 0, dim=1))
+
+    return _by_chunks(chunk, queries, 27 * table.cap)
+
+
+def radius_search(table: CellTable, queries: torch.Tensor, r, cap_out: int):
+    """All neighbours within ``r`` (up to the ``cap_out`` nearest):
+    ``(idx [Q, cap_out], sqdist, valid, count [Q], truncated [Q])``."""
+    def chunk(q):
+        d2, idxf, truncated = _candidates(table, _neighbor_buckets(table, q), q, r)
+        count = torch.sum(torch.isfinite(d2), dim=1, dtype=torch.int32)
+        dd, idx = _select_k(d2, idxf, cap_out)
+        return idx, dd, torch.isfinite(dd), count, truncated
+
+    return _by_chunks(chunk, queries, 27 * table.cap)
