@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
 
 1. holds each kernel against its plain PyTorch version on the card, at
    ragged shapes, with masked targets, with no valid target, with exact ties
-   and at the main path's shape (120k x 120k);
+   (also across sub-tiles, tiles and target slices, and at the origin) and at
+   the main path's shape (120k x 120k); 2048 x 120k, the shape of a
+   downsampled source against a dense map, is checked and timed as well;
 2. path A, the kernel path: point-to-point ICP with an infinite gate (the
    brute backend: one 120k x 120k 1-NN sweep per iteration) on a 120k-point
    pair moved by a known motion, then ``fitness_score``; checks the launch
@@ -16,11 +18,14 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    (cap 8, 53^3 cells), 20 iterations with every epsilon 0;
 4. kernel B2 (segmented sums) against its plain version: ragged N, one
    segment of all rows, every row its own segment, no valid row, N = 0,
-   W = 1, 7 and 131, tails of N and 2^28, the voxel grid's own input from
+   W = 1, 7 and 131, tails of N and 2^28, runs of ~500 rows, runs of one
+   row less, as many and one more than a thread adds alone, gaps between the
+   ids, the voxel grid's own input from
    scan 0, and from a cloud whose bounding box holds more than 2^30 cells
    (the three-key sort), whose voxel_downsample on the card must launch the
    kernel once and match the CPU run; two launches must be bitwise equal;
-   kernel, plain and torch.segment_reduce times beside the bound;
+   kernel, plain and torch.segment_reduce times beside the bound and beside
+   an empty kernel launched the same way;
 5. path C, the odometry front end at KITTI scan size: six 120k-point scans
    of a synthetic street, each through voxel_downsample (B2), estimate_normals
    (k = 16, host probe, cell list) and point-to-plane odometry_sequence;
@@ -125,11 +130,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 def nn1_bound_ms(nq: int, m: int):
     """Least time for one masked 3-D 1-NN sweep on this card. Operations:
-    per (query, target) pair 3 FMAs, a compare and a select, 5 float32
-    lane-instructions, at the float32 issue rate (peak FLOP/s / 2, an FMA
-    counting 2). Bytes: queries and targets read once (12 B each, 1 B
-    mask), index and distance written once. The larger bounds."""
-    ops_s = 5.0 * nq * m / (PEAK_FP32_FLOPS / 2)
+    per (query, target) pair 3 FMAs and one minimum, 4 float32
+    lane-instructions (the index of the minimum need not be tracked per
+    pair), at the float32 instruction rate (peak FLOP/s / 2, an FMA counting 2).
+    Bytes: queries and targets read once (12 B each, 1 B mask), index and
+    distance written once. The larger bounds."""
+    ops_s = 4.0 * nq * m / (PEAK_FP32_FLOPS / 2)
     bytes_s = (12.0 * nq + 13.0 * m + 8.0 * nq) / PEAK_BYTES
     return (ops_s, "operations") if ops_s >= bytes_s else (bytes_s, "bytes")
 
@@ -139,9 +145,9 @@ def phase1_nn1(nn1_mod, moved, tgt):
     rng = np.random.default_rng(1)
     dev = "cuda"
 
-    def case(name, t, m, q):
+    def case(name, t, m, q, slices=None):
         t, m, q = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (t, m, q))
-        ik, dk = nn1_mod.nn1(t, m, q)
+        ik, dk = nn1_mod.nn1(t, m, q, slices=slices)
         ip, dp = nn1_mod.nn1_plain(t, m, q)
         torch.cuda.synchronize()
         check(torch.equal(torch.isfinite(dk), torch.isfinite(dp)), f"{name}: +inf differs")
@@ -181,8 +187,38 @@ def phase1_nn1(nn1_mod, moved, tgt):
     m_dup[:50] = False
     errs.append(case("duplicates (ties)", t_dup, m_dup, q_dup)[0])
     errs.append(case("empty target", np.zeros((0, 3), np.float32), np.zeros(0, bool), pts(5))[0])
+    # exact ties whose two copies sit either side of a sub-tile (32, 64, 128
+    # targets), a 2048-target tile and a slice boundary (3 slices of 2048, 7
+    # of 896), and far apart; the queries sit on the tied points
+    t_tie = pts(6000)
+    edges = [32, 64, 128, 896, 1792, 2048, 2688, 4096, 5376]
+    for b in edges:
+        t_tie[b] = t_tie[b - 1]
+    t_tie[5000] = t_tie[5]
+    q_tie = np.concatenate([t_tie[edges], t_tie[[5]], pts(90)])
+    for slices in (None, 1, 3, 7):
+        errs.append(case(f"ties across sub-tiles, tiles and slices (slices={slices})",
+                         t_tie, np.ones(6000, bool), q_tie, slices=slices)[0])
+    # fewer targets than one sub-tile; Q and M multiples of nothing, the
+    # winner the last target of a ragged sub-tile
+    errs.append(case("M = 17", pts(17), np.ones(17, bool), pts(3))[0])
+    t_rag, q_rag = pts(2082), pts(1025)
+    q_rag[:200] = t_rag[-1] + np.float32(1e-3)
+    for slices in (None, 1, 5):
+        errs.append(case(f"ragged Q = 1025, M = 2082, winner last (slices={slices})",
+                         t_rag, np.ones(2082, bool), q_rag, slices=slices)[0])
+    # a query on a target at the origin, twice in the target: scores +0.0
+    # and -0.0 tie, and the lowest index wins
+    t_zero = pts(300)
+    t_zero[[3, 70, 257]] = 0.0
+    t_zero[70] = -0.0
+    q_zero = np.concatenate([np.zeros((2, 3), np.float32), pts(30)])
+    q_zero[1] = -0.0
+    errs.append(case("query and targets at the origin", t_zero, np.ones(300, bool), q_zero)[0])
     err, (t, m, q) = case("main path 120k x 120k", tgt, np.ones(len(tgt), bool), moved)
     errs.append(err)
+    q2k = q[:2048].contiguous()
+    errs.append(case("2048 x 120k", tgt, np.ones(len(tgt), bool), moved[:2048])[0])
 
     for bad, why in ((lambda: nn1_mod.nn1(t[:, :2].contiguous(), m, q[:, :2].contiguous()), "D != 3"),
                      (lambda: nn1_mod.nn1(t.double(), m, q.double()), "float64"),
@@ -196,8 +232,16 @@ def phase1_nn1(nn1_mod, moved, tgt):
     ms = cuda_ms(lambda: nn1_mod.nn1(t, m, q), reps=20)
     plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t, m, q), reps=2)
     bound_s, bound_by = nn1_bound_ms(len(q), len(t))
+    slots = nn1_mod.device_slots(torch.cuda.current_device())
     print(f"phase 1: nn1 kernel {ms:.3f} ms per 120k x 120k sweep, plain {plain_ms:.1f} ms, "
-          f"bound {bound_s * 1e3:.3f} ms ({bound_by}) [{card_line()}]", flush=True)
+          f"bound {bound_s * 1e3:.3f} ms ({bound_by}); the card holds {slots} blocks, "
+          f"(slices, slice length) {nn1_mod.nn1_plan(len(q), len(t), slots)} "
+          f"[{card_line()}]", flush=True)
+    ms2k = cuda_ms(lambda: nn1_mod.nn1(t, m, q2k), reps=50)
+    bound2k, by2k = nn1_bound_ms(len(q2k), len(t))
+    print(f"phase 1: nn1 kernel {ms2k * 1e3:.1f} us per 2048 x 120k sweep, bound "
+          f"{bound2k * 1e6:.1f} us ({by2k}), (slices, slice length) "
+          f"{nn1_mod.nn1_plan(len(q2k), len(t), slots)} [{card_line()}]", flush=True)
     return {"name": "nn1", "route": "cuda", "source": "pcl_tpu_torch/csrc/nn1.cu",
             "replaces": "pcl_tpu/ops/pallas_nn.py:32", "launches": None,
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
@@ -466,10 +510,15 @@ def phase4_segsum(segsum, scan0: np.ndarray):
         check(bool(((k1 - plain).abs() <= 1e-6 * mag).all()), f"B2 {name}: kernel != plain")
         live = members > 0
         check(bool((k1[~live] == 0).all()), f"B2 {name}: a row without members is not 0")
+        # a run that one thread adds alone is added in the plain version's order
+        short = members <= segsum.SEQUENTIAL_ROWS
+        check(torch.equal(k1[short], plain[short]),
+              f"B2 {name}: a run of up to {segsum.SEQUENTIAL_ROWS} rows differs from plain")
         err = float((k1 - plain).abs().max()) if k1.numel() else 0.0
         print(f"phase 4: segsum {name}: N={vals.shape[0]} W={vals.shape[1]} segments "
-              f"{int(live.sum())}, two launches bitwise equal, max |kernel - plain| "
-              f"{err:.3e}", flush=True)
+              f"{int(live.sum())} ({int((live & ~short).sum())} longer than "
+              f"{segsum.SEQUENTIAL_ROWS} rows), two launches bitwise equal, max "
+              f"|kernel - plain| {err:.3e}", flush=True)
         return err
 
     n_main = SCAN_CAPACITY
@@ -482,7 +531,24 @@ def phase4_segsum(segsum, scan0: np.ndarray):
         case("W = 1, tail 2**28", *segments(7777, 1, 0.5, 0.8, 2 ** 28)),
         case("W = 7, tail 2**28", *segments(7777, 7, 0.5, 0.8, 2 ** 28)),
         case("W = 131", *segments(7777, 131, 0.5, 0.8, 7777)),
+        case("runs of ~500 rows", *segments(n_main, 4, 0.002, 1.0, n_main)),
+        case("runs of ~500 rows, W = 7", *segments(50_000, 7, 0.002, 0.95, 50_000)),
     ]
+    # runs of one row less, as many, and one more than a thread adds alone
+    L = segsum.SEQUENTIAL_ROWS
+    lengths = np.tile([L - 1, L, L + 1], 200)
+    seg = np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+    vals = rng.normal(size=(len(seg), 4)).astype(np.float32)
+    errs.append(case(f"runs of {L - 1}, {L}, {L + 1} rows",
+                     torch.from_numpy(vals).to(dev), torch.from_numpy(seg).to(dev)))
+    # ids that skip (callers make none): the rows of the gaps are 0
+    steps = ((rng.random(10_000) < 0.2) * rng.integers(1, 4, 10_000)).astype(np.int32)
+    steps[0] = 2
+    seg = np.cumsum(steps).astype(np.int32)
+    seg[9000:] = 2 ** 28
+    vals = rng.normal(size=(10_000, 4)).astype(np.float32)
+    errs.append(case("gaps between ids", torch.from_numpy(vals).to(dev),
+                     torch.from_numpy(seg).to(dev)))
     one_vals, one_seg = segments(n_main, 4, 0.0, 1.0, n_main)
     one_ms = cuda_ms(lambda: segsum.segment_sum_sorted(one_vals, one_seg), reps=3)
 
@@ -520,12 +586,23 @@ def phase4_segsum(segsum, scan0: np.ndarray):
         torch.cuda.synchronize()
     device_us = {}
     for e in prof.key_averages():
-        name = re.search(r"segsum_\w+_kernel", e.key)
+        name = re.search(r"segsum\w*_kernel", e.key)
         if e.device_type == torch.autograd.DeviceType.CUDA and name:
             device_us[name.group(0)] = e.self_device_time_total / e.count
     print(f"phase 4: segsum device time per launch (profiler): "
           + (", ".join(f"{k} {v:.2f} us" for k, v in device_us.items()) or "not measured"),
           flush=True)
+    noop = segsum.launch_floor()
+    floor_ms = cuda_ms(noop, reps=500)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+        noop()
+    floor_host = (time.perf_counter() - t0) / 500
+    torch.cuda.synchronize()
+    print(f"phase 4: launch floor: an empty kernel through the same ctypes path "
+          f"{floor_ms * 1e3:.1f} us per call (CUDA events), {floor_host * 1e6:.1f} us of host "
+          f"time per call [{card_line()}]", flush=True)
     print(f"phase 4: segsum kernel {ms * 1e3:.1f} us per call at N={vals.shape[0]} "
           f"W={vals.shape[1]} ({n_vox} voxels), plain {plain_ms * 1e3:.1f} us, "
           f"torch.segment_reduce {library_ms * 1e3:.1f} us, bound {bound_s * 1e6:.2f} us "
@@ -624,8 +701,15 @@ def phase5_path_c(segsum, nn1_mod, scans, golden, record):
                                        cell_size=cell, cell_cap=cap)
     n_card = ds.attrs["normal"].cpu()[sub]
     c_card = ds.attrs["curvature"].cpu()[sub]
-    idx, _, valid = search.knn(surf_cpu, query.xyz, NORMAL_K, backend="cell",
-                               cell_size=cell, cell_cap=cap)
+    idx, d2n, valid = search.knn(surf_cpu, query.xyz, NORMAL_K + 1, backend="cell",
+                                 cell_size=cell, cell_cap=cap)
+    # A voxel whose 16th and 17th neighbours are equally far to float32
+    # rounding has no one neighbourhood: which of the two a device takes
+    # depends on how it rounds a squared distance (1e-5 of it at 60 m range),
+    # and the host's CPU type decides that for the CPU run. Such voxels
+    # (about one in a thousand) are counted and left out of the comparison.
+    firm = (d2n[:, NORMAL_K] - d2n[:, NORMAL_K - 1]) > 1e-4 * d2n[:, NORMAL_K]
+    idx, valid = idx[:, :NORMAL_K], valid[:, :NORMAL_K]
     nbr = surf_cpu.xyz[torch.clamp(idx.long(), 0, surf_cpu.capacity - 1)]
     _, cov, _ = geometry.mean_and_covariance(nbr, valid)
     lam = np.linalg.eigvalsh(cov.double().numpy())
@@ -634,17 +718,19 @@ def phase5_path_c(segsum, nn1_mod, scans, golden, record):
     # eigenvalues are 1e-2 of lambda2 apart, 5e-4 elsewhere (the closed
     # form's arccos loses accuracy as two eigenvalues meet: the poles' thin
     # neighbourhoods)
-    well = torch.from_numpy(lam[:, 1] - lam[:, 0] > 1e-3 * lam[:, 2])
+    well = torch.from_numpy(lam[:, 1] - lam[:, 0] > 1e-3 * lam[:, 2]) & firm
     apart = torch.from_numpy(np.min(np.diff(lam, axis=1), axis=1) > 1e-2 * lam[:, 2])
     dots = (n_card * on_cpu.attrs["normal"]).sum(1)
     cerr = (c_card - on_cpu.attrs["curvature"]).abs()
     print(f"phase 5: scan 0 card vs CPU: {int(ds.mask.sum())} voxels equal, max |centroid "
-          f"diff| {derr:.3e} m; normals of {len(sub)} voxels: min n.n' {float(dots[well].min()):.8f} "
+          f"diff| {derr:.3e} m; normals of {len(sub)} voxels ({int((~firm).sum())} left out: "
+          f"16th and 17th neighbour tie): min n.n' {float(dots[well].min()):.8f} "
           f"on {int(well.sum())} well-conditioned, max |curvature diff| "
-          f"{float(cerr[apart].max()):.3e} ({int(apart.sum())} separated), "
-          f"{float(cerr.max()):.3e} (all)", flush=True)
+          f"{float(cerr[apart & firm].max()):.3e} ({int((apart & firm).sum())} separated), "
+          f"{float(cerr[firm].max()):.3e} (all)", flush=True)
+    check(int((~firm).sum()) <= len(sub) // 100, "scan 0: too many neighbour ties left out")
     check(bool((dots[well] >= 1 - 1e-5).all()), "scan 0: normals differ from the CPU run")
-    check(bool((cerr <= torch.where(apart, 1e-5, 5e-4)).all()),
+    check(bool((cerr <= torch.where(apart, 1e-5, 5e-4))[firm].all()),
           "scan 0: curvature differs from the CPU run")
 
     # the whole chain with the plain segment sum on the card

@@ -16,6 +16,7 @@ to the plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -102,6 +105,29 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             _loaded[name] = lib
     return lib
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(dev: torch.device):
+    """A context in which ``dev`` is the current CUDA device: nothing to
+    enter when it already is (the usual case on a wrapper's hot path)."""
+    if dev.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(dev)
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(dev: torch.device) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on ``dev`` as an
+    int, without building a ``torch.cuda.Stream`` where PyTorch offers the
+    raw pointer (the object costs several microseconds per call)."""
+    if _raw_stream is not None:
+        return _raw_stream(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def build_log(name: str) -> str:

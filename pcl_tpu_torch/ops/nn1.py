@@ -11,7 +11,10 @@ Counterpart of ``pcl_tpu/ops/pallas_nn.py`` (the Pallas kernel
 
 :func:`nn1` is the wrapper: on CUDA tensors it launches the kernel (and
 counts the launch in ``nn1.launches``), on CPU tensors it runs
-:func:`nn1_plain`. Nothing falls back from one to the other.
+:func:`nn1_plain`. Nothing falls back from one to the other. The kernel
+searches the targets in slices, so that few queries still fill the card;
+:func:`nn1_plan` chooses how many, and the wrapper allocates the scratch
+``[slices, Q]`` that the kernel's merge pass reads.
 
 The plain version computes the score with the kernel's arithmetic: three
 fused multiply-adds in the kernel's order, each emulated in float64 (the
@@ -23,7 +26,8 @@ therefore agree bit for bit, apart from double-rounding cases (about one in
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,14 +80,76 @@ def nn1_plain(
     return idx, d2
 
 
-_argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+# The kernel's blocking, as csrc/nn1.cu sets it: queries per block, targets
+# per sub-tile. The wrapper only plans with them; the kernel takes any plan.
+QUERY_BLOCK = 1024
+SUB_TILE = 32
+# a target slice is at least this long, and there are at most this many
+MIN_SLICE = 256
+MAX_SLICES = 256
 
 
+def _slice_len(m: int, slices: int) -> int:
+    """``ceil(m / slices)`` rounded up to whole sub-tiles."""
+    return -(-(-(-m // slices)) // SUB_TILE) * SUB_TILE
+
+
+@functools.lru_cache(maxsize=256)
+def nn1_plan(nq: int, m: int, slots: int) -> Tuple[int, int]:
+    """How the kernel cuts ``m`` targets for ``nq`` queries on a card that
+    holds ``slots`` blocks at once: ``(slices, slice_len)``.
+
+    The grid is ``ceil(nq / QUERY_BLOCK) x slices`` blocks of equal work, run
+    in waves of ``slots``. A wave that is not full leaves SMs idle, so the
+    share of full waves is the efficiency of a plan; the fewest slices within
+    3% of the best efficiency win (each slice costs scratch ``[nq]`` and a
+    pass of the merge). ``slice_len`` is a multiple of ``SUB_TILE``, and
+    ``slices * slice_len >= m > (slices - 1) * slice_len``. No target: (0, 0).
+    """
+    if m <= 0 or nq <= 0:
+        return 0, 0
+    tiles = -(-nq // QUERY_BLOCK)
+    plans = {}
+    for s in range(1, max(1, min(MAX_SLICES, m // MIN_SLICE)) + 1):
+        slice_len = _slice_len(m, s)
+        slices = -(-m // slice_len)
+        blocks = tiles * slices
+        plans.setdefault(slices, (blocks / (-(-blocks // slots) * slots), slice_len))
+    top = max(eff for eff, _ in plans.values())
+    slices = min(s for s, (eff, _) in plans.items() if eff >= 0.97 * top)
+    return slices, plans[slices][1]
+
+
+def scratch_elems(nq: int, m: int, slices: int) -> int:
+    """Float32 elements of the kernel's one scratch tensor: the packed
+    targets ``[m, 4]``, then the slices' minima ``[slices, nq]`` f32 and
+    indices ``[slices, nq]`` i32."""
+    return 4 * m + 2 * slices * nq
+
+
+_argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The built library, its argument types set: resolved once."""
     lib = _build.load("nn1")
     lib.pcl_nn1.argtypes = _argtypes
     lib.pcl_nn1.restype = ctypes.c_int
+    if lib.pcl_nn1_query_block() != QUERY_BLOCK:
+        raise RuntimeError("csrc/nn1.cu and ops/nn1.py disagree on the query block")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def device_slots(index: int) -> int:
+    """Blocks of the search kernel that CUDA device ``index`` holds at once
+    (SMs x resident blocks per SM), asked of the CUDA runtime once."""
+    with torch.cuda.device(index):
+        slots = _lib().pcl_nn1_slots()
+    if slots <= 0:
+        raise RuntimeError("nn1: the CUDA runtime gave no occupancy for the kernel")
+    return slots
 
 
 def _check(target: torch.Tensor, tmask: torch.Tensor, queries: torch.Tensor) -> None:
@@ -111,11 +177,14 @@ def _check(target: torch.Tensor, tmask: torch.Tensor, queries: torch.Tensor) -> 
 
 
 def nn1(
-    target: torch.Tensor, tmask: torch.Tensor, queries: torch.Tensor
+    target: torch.Tensor, tmask: torch.Tensor, queries: torch.Tensor,
+    slices: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact masked 1-NN: ``(index [Q] int32, sqdist [Q] f32)``.
 
-    CUDA tensors: the kernel (3-D float32 only; anything else raises).
+    CUDA tensors: the kernel (3-D float32 only; anything else raises), with
+    the targets cut into ``slices`` slices (default: :func:`nn1_plan`'s
+    choice for this card; the result does not depend on it).
     CPU tensors: :func:`nn1_plain`."""
     if queries.device.type == "cpu":
         if target.device.type != "cpu" or tmask.device.type != "cpu":
@@ -126,14 +195,24 @@ def nn1(
     _check(target, tmask, queries)
     nq, m = queries.shape[0], target.shape[0]
     dev = queries.device
-    idx = torch.empty(nq, dtype=torch.int32, device=dev)
-    d2 = torch.empty(nq, dtype=torch.float32, device=dev)
-    packed = torch.empty((m, 4), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().pcl_nn1(queries.data_ptr(), target.data_ptr(), tmask.data_ptr(),
-                             nq, m, packed.data_ptr(), idx.data_ptr(),
-                             d2.data_ptr(), stream)
+    lib = _lib()
+    with _build.on_device(dev):
+        if slices is None or m == 0:
+            slices, slice_len = nn1_plan(nq, m, device_slots(dev.index))
+        else:
+            if not 1 <= slices <= MAX_SLICES:
+                raise ValueError(f"nn1: slices must lie in [1, {MAX_SLICES}], got {slices}")
+            slice_len = _slice_len(m, slices)
+        if slices * nq >= 2 ** 31:
+            raise ValueError("nn1 kernel indexes its scratch with int32: too many queries")
+        out = torch.empty((2, nq), dtype=torch.int32, device=dev)
+        scratch = torch.empty(scratch_elems(nq, m, slices), dtype=torch.float32, device=dev)
+        idx, d2 = out[0], out[1].view(torch.float32)
+        packed = scratch.data_ptr()
+        sbest = packed + 16 * m
+        err = lib.pcl_nn1(queries.data_ptr(), target.data_ptr(), tmask.data_ptr(), nq, m,
+                          slices, slice_len, packed, sbest, sbest + 4 * slices * nq,
+                          idx.data_ptr(), d2.data_ptr(), _build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"nn1 kernel launch failed: cudaError {err}")
     nn1.launches += 1

@@ -12,8 +12,12 @@ Contract, shared by both versions of :func:`segment_sum_sorted`:
 - output row ``s`` of ``[N, W]`` is the sum of the rows with ``seg == s``;
   rows whose id lies outside ``[0, N)`` are dropped, and a row with no member
   is 0 (the JAX kernel leaves those rows undefined; every caller masks);
-- the rows of a segment are added in ascending row order, starting from 0,
-  so the result is deterministic.
+- the rows of a segment are added in a fixed order, starting from 0, so the
+  result is deterministic (two calls are bitwise equal): ascending row order
+  for a segment of up to ``SEQUENTIAL_ROWS`` rows, in both versions. A longer
+  segment the kernel shares among the threads of a block (strided partial
+  sums, then a fixed tree), while the plain version stays in row order: there
+  the two agree to rounding, ``1e-6 * sum|v|``.
 
 :func:`segment_sum_sorted` is the wrapper: on CUDA tensors it launches the
 kernel (and counts the launch in ``segment_sum_sorted.launches``), on CPU
@@ -25,6 +29,7 @@ was a lane limit).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -32,6 +37,8 @@ import torch
 from pcl_tpu_torch.ops import _build
 
 I32_BIG = 2 ** 31 - 1
+# csrc/segsum.cu's kSeq: up to this many rows one thread adds alone, in row order
+SEQUENTIAL_ROWS = 64
 
 
 def segment_sum_sorted_plain(vals: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
@@ -39,8 +46,9 @@ def segment_sum_sorted_plain(vals: torch.Tensor, seg: torch.Tensor) -> torch.Ten
     ascending row order, deterministically: ``index_add_`` on the CPU (a
     sequential loop over the rows) and ``index_put_`` with ``accumulate`` on
     the card (a stable sort of the ids, then each run of equal ids added in
-    order; the card's ``index_add_`` uses atomics). Ids outside ``[0, N)`` go
-    to a spare row that is dropped."""
+    order; the card's ``index_add_`` uses atomics; at ``W = 1`` its runs of
+    some tens of rows were seen to differ from row order in the last bits).
+    Ids outside ``[0, N)`` go to a spare row that is dropped."""
     n, w = vals.shape
     keep = (seg >= 0) & (seg < n)
     idx = torch.where(keep, seg.long(), n)
@@ -52,14 +60,32 @@ def segment_sum_sorted_plain(vals: torch.Tensor, seg: torch.Tensor) -> torch.Ten
     return out[:n]
 
 
-_argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The built library, its argument types set: resolved once."""
     lib = _build.load("segsum")
     lib.pcl_segsum.argtypes = _argtypes
     lib.pcl_segsum.restype = ctypes.c_int
+    lib.pcl_segsum_noop.argtypes = [ctypes.c_void_p]
+    lib.pcl_segsum_noop.restype = ctypes.c_int
     return lib
+
+
+def launch_floor():
+    """A function that launches an empty kernel on the current stream
+    through the same library and ctypes path as the kernel: what a launch
+    alone costs, beside the kernel's time."""
+    noop = _lib().pcl_segsum_noop
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def launch() -> None:
+        err = noop(_build.current_stream(dev))
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
+    return launch
 
 
 def _check(vals: torch.Tensor, seg: torch.Tensor) -> None:
@@ -92,14 +118,13 @@ def segment_sum_sorted(vals: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     _check(vals, seg)
     n, w = vals.shape
     dev = vals.device
-    out = torch.empty((n, w), dtype=torch.float32, device=dev)
+    out = torch.empty_like(vals)
     if n == 0 or w == 0:
         return out
-    starts = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().pcl_segsum(vals.data_ptr(), seg.data_ptr(), n, w,
-                                starts.data_ptr(), out.data_ptr(), stream)
+    lib = _lib()
+    with _build.on_device(dev):
+        err = lib.pcl_segsum(vals.data_ptr(), seg.data_ptr(), n, w, out.data_ptr(),
+                             _build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"segsum kernel launch failed: cudaError {err}")
     segment_sum_sorted.launches += 1

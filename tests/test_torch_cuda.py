@@ -56,6 +56,80 @@ def test_nn1_kernel_matches_plain(cuda, nq, m, valid_frac, dup):
     assert torch.equal(dk, dp)
 
 
+def _tie_case():
+    """Exact ties whose two copies sit either side of a sub-tile (32, 64, 128
+    targets), a 2048-target tile and a slice boundary (3 slices of 2048, 7 of
+    896), and far apart; the queries sit on the tied points."""
+    rng = np.random.default_rng(7)
+    t = rng.uniform(-5, 5, size=(6000, 3)).astype(np.float32)
+    edges = [32, 64, 128, 896, 1792, 2048, 2688, 4096, 5376]
+    for b in edges:
+        t[b] = t[b - 1]
+    t[5000] = t[5]
+    q = np.concatenate([t[edges], t[[5]], rng.uniform(-5, 5, size=(90, 3)).astype(np.float32)])
+    return t, np.ones(6000, bool), q
+
+
+def _ragged_case():
+    """Q and M multiples of nothing; the winner of the first 200 queries is
+    the last target, in a ragged sub-tile."""
+    rng = np.random.default_rng(8)
+    t = rng.uniform(-5, 5, size=(2082, 3)).astype(np.float32)
+    q = rng.uniform(-5, 5, size=(1025, 3)).astype(np.float32)
+    q[:200] = t[-1] + np.float32(1e-3)
+    return t, np.ones(2082, bool), q
+
+
+def _origin_case():
+    """A query on a target at the origin, three times in the target: the
+    scores +0.0 and -0.0 tie, and the lowest index wins."""
+    rng = np.random.default_rng(9)
+    t = rng.uniform(-5, 5, size=(300, 3)).astype(np.float32)
+    t[[3, 70, 257]] = 0.0
+    t[70] = -0.0
+    q = np.concatenate([np.zeros((2, 3), np.float32),
+                        rng.uniform(-5, 5, size=(30, 3)).astype(np.float32)])
+    q[1] = -0.0
+    return t, np.ones(300, bool), q
+
+
+def _tiny_case():
+    rng = np.random.default_rng(10)
+    return (rng.uniform(-5, 5, size=(17, 3)).astype(np.float32), np.ones(17, bool),
+            rng.uniform(-5, 5, size=(3, 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize("make,slices", [
+    (_tie_case, None), (_tie_case, 1), (_tie_case, 3), (_tie_case, 7),
+    (_ragged_case, None), (_ragged_case, 1), (_ragged_case, 5),
+    (_origin_case, None), (_origin_case, 2), (_tiny_case, None), (_tiny_case, 4),
+])
+def test_nn1_kernel_edges_match_plain(cuda, make, slices):
+    """Ties across sub-tiles, tiles and slices, ragged edges, the two zeros,
+    fewer targets than a sub-tile: the kernel equals plain bit for bit
+    whatever the number of slices."""
+    t, tm, q = (torch.from_numpy(a).to(cuda) for a in make())
+    ik, dk = nn1_mod.nn1(t, tm, q, slices=slices)
+    ip, dp = nn1_mod.nn1_plain(t, tm, q)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+
+
+def test_nn1_kernel_few_queries_against_a_dense_map(cuda):
+    """2048 queries against 120,000 targets: the targets are cut into
+    slices so that the blocks fill the card; equal to plain."""
+    t, tm, q = (torch.from_numpy(a).to(cuda) for a in _inputs(11, 2048, 120_000, 0.95))
+    slices, slice_len = nn1_mod.nn1_plan(
+        2048, 120_000, nn1_mod.device_slots(torch.cuda.current_device()))
+    assert slices > 16 and slices * slice_len >= 120_000
+    ik, dk = nn1_mod.nn1(t, tm, q)
+    ip, dp = nn1_mod.nn1_plain(t, tm, q)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+
+
 def test_nn1_kernel_rejects(cuda):
     t = torch.zeros((10, 3), device=cuda)
     tm = torch.ones(10, dtype=torch.bool, device=cuda)
@@ -67,6 +141,8 @@ def test_nn1_kernel_rejects(cuda):
         nn1_mod.nn1(t.t().contiguous().t(), tm, t)
     with pytest.raises(ValueError, match="different devices"):
         nn1_mod.nn1(t, tm.cpu(), t)
+    with pytest.raises(ValueError, match="slices"):
+        nn1_mod.nn1(t, tm, t, slices=0)
 
 
 def test_icp_on_card_matches_cpu(cuda):
@@ -124,6 +200,60 @@ def test_segsum_kernel_matches_plain(cuda, n, w, p_new, valid_frac, tail):
     assert bool(((k1 - plain).abs() <= 1e-6 * mag.sum(1, keepdim=True)).all())
     live = segsum.segment_sum_sorted_plain(torch.ones_like(vals[:, :1]), seg)[:, 0] > 0
     assert bool((k1[~live] == 0).all())
+
+
+def _check_segsum(vals, seg):
+    """Kernel twice and plain: bitwise repeatable; equal to the sum in row
+    order (the plain version on CPU tensors: a sequential loop) on every run
+    that one thread adds alone; within 1e-6 sum|v| of the plain version on
+    the card on longer runs (the block adds those in another fixed order);
+    rows without members 0."""
+    k1 = segsum.segment_sum_sorted(vals, seg)
+    k2 = segsum.segment_sum_sorted(vals, seg)
+    plain = segsum.segment_sum_sorted_plain(vals, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    members = segsum.segment_sum_sorted_plain(torch.ones_like(vals[:, :1]), seg)[:, 0]
+    short = (members <= segsum.SEQUENTIAL_ROWS).cpu()
+    in_row_order = segsum.segment_sum_sorted_plain(vals.cpu(), seg.cpu())
+    assert torch.equal(k1.cpu()[short], in_row_order[short])
+    mag = segsum.segment_sum_sorted_plain(vals.abs(), seg).sum(1, keepdim=True)
+    assert bool(((k1 - plain).abs() <= 1e-6 * mag).all())
+    assert bool((k1[members == 0] == 0).all())
+    return int((~short).sum())
+
+
+@pytest.mark.parametrize("n,w,valid_frac", [(120000, 4, 1.0), (50000, 7, 0.95),
+                                            (30000, 8, 0.9), (5000, 131, 1.0)])
+def test_segsum_kernel_long_runs(cuda, n, w, valid_frac):
+    """Runs of ~500 rows go to the block's shared, fixed-order sum."""
+    vals, seg = (torch.from_numpy(a).to(cuda)
+                 for a in _segments(2, n, w, 0.002, valid_frac, "n"))
+    assert _check_segsum(vals, seg) > 0
+
+
+@pytest.mark.parametrize("w", [1, 4, 12])
+def test_segsum_kernel_runs_around_the_sequential_limit(cuda, w):
+    """Runs of one row less, as many, and one more than a thread adds alone."""
+    L = segsum.SEQUENTIAL_ROWS
+    lengths = np.tile([L - 1, L, L + 1], 150)
+    seg = np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+    vals = np.random.default_rng(3).normal(size=(len(seg), w)).astype(np.float32)
+    n_long = _check_segsum(torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda))
+    assert n_long == 150
+
+
+def test_segsum_kernel_gaps_between_ids(cuda):
+    """Ids that skip (no caller makes them): the rows of the gaps are 0,
+    those before the first id included."""
+    rng = np.random.default_rng(4)
+    n = 10_000
+    steps = ((rng.random(n) < 0.2) * rng.integers(1, 4, n)).astype(np.int32)
+    steps[0] = 2
+    seg = np.cumsum(steps).astype(np.int32)
+    seg[9000:] = 2 ** 28
+    vals = rng.normal(size=(n, 4)).astype(np.float32)
+    _check_segsum(torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda))
 
 
 def test_segsum_kernel_rejects(cuda):

@@ -114,3 +114,100 @@ def test_wrapper_rejects_other_devices():
         tnn1.nn1(t, torch.ones(4, dtype=torch.bool, device="meta"), t)
     with pytest.raises(ValueError, match="different devices"):
         tnn1.nn1(t, torch.ones(4, dtype=torch.bool), torch.zeros((2, 3)))
+
+
+def _tie_case(rng, edges, m):
+    """Targets in which the point at ``b - 1`` is repeated at ``b`` for every
+    ``b`` of ``edges`` (and target 5 again at ``m - 7``), and queries that
+    sit on those points: exact ties either side of a boundary."""
+    t = rng.uniform(-5, 5, size=(m, 3)).astype(np.float32)
+    for b in edges:
+        t[b] = t[b - 1]
+    t[m - 7] = t[5]
+    q = np.concatenate([t[edges], t[[5]],
+                        rng.uniform(-5, 5, size=(20, 3)).astype(np.float32)])
+    return t, np.ones(m, bool), q
+
+
+@pytest.mark.parametrize("edges,m", [([32, 64], 300), ([128, 256], 520), ([32, 128, 2048], 2100)])
+def test_plain_ties_across_boundaries_match_pallas_interpret(rng, edges, m):
+    """The lowest index wins a tie whose copies straddle the CUDA kernel's
+    sub-tile (32), the TPU kernel's target tile (128 here) and the CUDA
+    kernel's shared-memory tile (2048): plain against the interpreted TPU
+    kernel, indices exactly, distances to 1e-6 relative."""
+    t, tm, q = _tie_case(rng, edges, m)
+    i_p, d_p = pallas_nn.nn1_pallas(jnp.asarray(t), jnp.asarray(tm), jnp.asarray(q),
+                                    qt=128, tt=128, interpret=True)
+    i_t, d_t = tnn1.nn1_plain(torch.from_numpy(t), torch.from_numpy(tm), torch.from_numpy(q))
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_p))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_p), rtol=1e-6, atol=0)
+    # the tied queries found the lower copy, at distance 0
+    np.testing.assert_array_equal(i_t.numpy()[:len(edges)], np.asarray(edges) - 1)
+    assert i_t[len(edges)] == 5 and np.all(d_t.numpy()[:len(edges) + 1] == 0.0)
+
+
+def test_plain_point_at_the_origin_matches_pallas_interpret(rng):
+    """A query on a target at the origin, three times in the target with
+    both signs of zero: the scores +0.0 and -0.0 tie and index 3 wins."""
+    t = rng.uniform(-5, 5, size=(300, 3)).astype(np.float32)
+    t[[3, 70, 257]] = 0.0
+    t[70] = -0.0
+    q = np.concatenate([np.zeros((2, 3), np.float32),
+                        rng.uniform(-5, 5, size=(30, 3)).astype(np.float32)])
+    q[1] = -0.0
+    tm = np.ones(300, bool)
+    i_p, d_p = pallas_nn.nn1_pallas(jnp.asarray(t), jnp.asarray(tm), jnp.asarray(q),
+                                    qt=128, tt=128, interpret=True)
+    i_t, d_t = tnn1.nn1_plain(torch.from_numpy(t), torch.from_numpy(tm), torch.from_numpy(q))
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_p))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_p), rtol=1e-6, atol=0)
+    assert i_t[:2].tolist() == [3, 3] and d_t[:2].tolist() == [0.0, 0.0]
+
+
+# the H100 holds 792 blocks of the search kernel at once (132 SMs x 6)
+PLAN_TABLE = [(1, 1), (1, 17), (1, 120_000), (300, 700), (2048, 2048), (2048, 120_000),
+              (120_000, 2048), (120_000, 120_000), (1_000_000, 1_000_000), (5000, 31),
+              (1025, 2082)]
+
+
+@pytest.mark.parametrize("slots", [132, 792])
+@pytest.mark.parametrize("nq,m", PLAN_TABLE)
+def test_plan_covers_the_targets(nq, m, slots):
+    """What Python decides for the kernel: the slices cover the targets with
+    none to spare, in whole sub-tiles, within the limits, and the scratch
+    tensor holds the packed targets and one (minimum, index) pair per slice
+    and query."""
+    slices, slice_len = tnn1.nn1_plan(nq, m, slots)
+    assert 1 <= slices <= tnn1.MAX_SLICES
+    assert slice_len % tnn1.SUB_TILE == 0
+    assert slices * slice_len >= m > (slices - 1) * slice_len
+    assert slices == 1 or slice_len >= tnn1.MIN_SLICE
+    assert tnn1.scratch_elems(nq, m, slices) == 4 * m + 2 * slices * nq
+
+
+def test_plan_fills_the_card():
+    """Few queries against many targets are cut into enough slices to give
+    every block slot of the card work (the first design ran 8 blocks here);
+    a sweep that fills the card many times over is cut so that its last wave
+    is nearly full; and the plan never splits more than it must."""
+    slots = 792
+    tile = lambda nq: -(-nq // tnn1.QUERY_BLOCK)
+    for nq, least in ((1, 132), (2048, 0.5 * slots)):     # a block per SM; half the slots
+        slices, _ = tnn1.nn1_plan(nq, 120_000, slots)
+        assert least <= tile(nq) * slices <= slots
+    slices, _ = tnn1.nn1_plan(120_000, 120_000, slots)
+    blocks = tile(120_000) * slices
+    assert blocks / (-(-blocks // slots) * slots) >= 0.95 and slices <= 32
+    # Q alone fills the card evenly: one slice
+    assert tnn1.nn1_plan(slots * tnn1.QUERY_BLOCK, 50_000, slots)[0] == 1
+    # nothing to search
+    assert tnn1.nn1_plan(5, 0, slots) == (0, 0) and tnn1.nn1_plan(0, 5, slots) == (0, 0)
+
+
+def test_wrapper_takes_slices_on_cpu(rng):
+    """``slices`` only steers the kernel: on CPU tensors the plain version
+    answers whatever it is."""
+    t, m, q = _case(rng, "ties")
+    args = (torch.from_numpy(t), torch.from_numpy(m), torch.from_numpy(q))
+    for got, want in zip(tnn1.nn1(*args, slices=3), tnn1.nn1_plain(*args)):
+        assert torch.equal(got, want)

@@ -172,3 +172,49 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         segsum.segment_sum_sorted(torch.zeros((3, 2), device="meta"),
                                   torch.zeros(3, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("lengths", [
+    [segsum.SEQUENTIAL_ROWS - 1, segsum.SEQUENTIAL_ROWS, segsum.SEQUENTIAL_ROWS + 1] * 4,
+    [500, 3, 500, 1, 250],
+])
+@pytest.mark.parametrize("w", [1, 4])
+def test_runs_around_the_sequential_limit_and_long_runs(rng, lengths, w):
+    """Runs of one row less, as many and one more than the CUDA kernel adds
+    with one thread, and runs of 500 rows: the plain version stays in row
+    order at every length (it is the kernel's reference: bitwise up to
+    SEQUENTIAL_ROWS rows, to 1e-6 sum|v| beyond), and agrees with a float64
+    sum to 1e-6 sum|v| and with the interpreted TPU kernel to ``_tol``."""
+    seg = np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+    n = len(seg)
+    vals = rng.normal(size=(n, w)).astype(np.float32)
+    got = segsum.segment_sum_sorted(torch.from_numpy(vals), torch.from_numpy(seg)).numpy()
+    # row order, exactly: a float32 loop over each run
+    want = np.zeros((n, w), np.float32)
+    for r in range(n):
+        want[seg[r]] += vals[r]
+    np.testing.assert_array_equal(got, want)
+    mag = np.zeros((n, 1))
+    np.add.at(mag, seg, np.abs(vals).sum(1, keepdims=True))
+    assert np.all(np.abs(got - _np_segsum(vals, seg)) <= 1e-6 * mag)
+    jax_out = np.asarray(jseg.segment_sum_sorted(jnp.asarray(vals), jnp.asarray(seg),
+                                                 chunk=128, interpret=True))
+    live = len(lengths)
+    assert np.all(np.abs(got[:live] - jax_out[:live]) <= _tol(vals, seg, n)[:live])
+    assert np.all(got[live:] == 0.0)
+
+
+def test_gaps_between_ids_leave_zero_rows(rng):
+    """Ids that skip (no caller makes them, the kernel and the plain version
+    accept them): the rows of the gaps, those before the first id included,
+    are 0 and the others are the float64 sums to 1e-6 sum|v|."""
+    n = 2000
+    steps = ((rng.random(n) < 0.2) * rng.integers(1, 4, n)).astype(np.int32)
+    steps[0] = 2
+    seg = np.cumsum(steps).astype(np.int32)
+    seg[1800:] = 2 ** 28
+    vals = rng.normal(size=(n, 4)).astype(np.float32)
+    got = segsum.segment_sum_sorted(torch.from_numpy(vals), torch.from_numpy(seg)).numpy()
+    members = np.bincount(seg[:1800], minlength=n)[:n]
+    assert np.all(got[members == 0] == 0.0) and members[0] == 0 and members[2] > 0
+    assert np.all(np.abs(got - _np_segsum(vals, seg)) <= _tol(vals, seg, n))
