@@ -21,7 +21,9 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    W = 1, 7 and 131, tails of N and 2^28, runs of ~500 rows, runs of one
    row less, as many and one more than a thread adds alone, gaps between the
    ids, the voxel grid's own input from
-   scan 0, and from a cloud whose bounding box holds more than 2^30 cells
+   scan 0, the NDT grid's own input from scan 0 (120,000 x 13, runs of
+   hundreds of rows; timed as well), and a cloud whose bounding box holds
+   more than 2^30 cells
    (the three-key sort), whose voxel_downsample on the card must launch the
    kernel once and match the CPU run; two launches must be bitwise equal;
    kernel, plain and torch.segment_reduce times beside the bound and beside
@@ -31,22 +33,40 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    (k = 16, host probe, cell list) and point-to-plane odometry_sequence;
    checks B2's launch count, convergence, truncation, the trajectory error,
    scan 0 against the port's CPU run, and the same chain with the plain
-   segment sum.
+   segment sum;
+6. path D, the odometry command-line flow with the other two aligners: the
+   six scans written as binary_compressed PCD files and read back bit for
+   bit, ``tools.voxel_grid`` on each file (B2), GICP ``odometry_sequence``
+   over the downsampled files with the cell-list arguments ``tools.odometry``
+   gives it (hash cell lists, cells and caps from the host probe), NDT of each
+   downsampled scan against the raw scan before it from an odometry prior
+   (``build_grid`` launches B2 once per grid), NDT from the identity on four
+   scans of a street with alleys (a scene where NDT sees every axis),
+   ``tools.odometry`` itself, which must repeat the GICP poses, GICP with an
+   infinite gate on 8,192 points of the noisy pair moved further (the brute
+   branch: B1 once per iteration, several iterations), GICP and NDT on the
+   card against the port's CPU run on a 20,000-point pair, and a device
+   breakdown of one GICP and one NDT pair.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
-0.08) m; path C's street and scans come from seed 0. Any failed check
+0.08) m; path C's street and scans come from seed 0, the street with alleys
+from seed 7. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
 and exits non-zero.
 """
 
+import contextlib
+import io as pyio
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -72,6 +92,46 @@ SEQUENCE_KW = dict(fov_tan=1.2, z_range=(1.0, 60.0), max_points=SCAN_CAPACITY,
 # up to ~250 of the 0.2 m voxels (CPU rehearsal of these six scans)
 ICP_KW = dict(variant="point_to_plane", max_corr_dist=1.0, max_iterations=40,
               cell_cap=256)
+# path D: GICP and NDT behind the odometry command line
+GICP_KW = dict(max_corr_dist=1.0, max_iterations=40)
+GICP_K = 20
+# NDT on this street (CPU rehearsal of the six scans at full size). Started from
+# the identity it recovers the motion across the street and upwards but leaves
+# the 0.45 m along the street untouched: ground and facades do not change along
+# that axis, and the poles' and cars' Gaussians are some 0.07 m wide, so a
+# point 0.45 m away feels none of them. It is therefore run as its users run
+# it, from an odometry prior: the true step, off by 0.05 m across the street
+# and 0.002 rad about a random axis (seeded), exact along the street. With 2 m
+# voxels every pair then converged within 23 iterations to within 3 mm across
+# the street; with 1 m voxels pair 4 stopped after 2 iterations at the prior's
+# pose (its first step found no better score), and from a 0.10 m prior pair 3
+# was still creeping after 35 iterations (the damping is relative to the trace
+# of the Hessian, which the rotational entries dominate).
+NDT_KW = dict(resolution=2.0, max_iterations=35)
+NDT_PRIOR_ERROR = (0.05, 0.002)          # m across the street, rad
+# 1.5 x the 0.012384 m measured on the H100 (0.012395 m in the CPU rehearsal);
+# the limit first planned was 0.15 m, NDT's voxel-attraction bias at a quarter
+# of this resolution in the JAX package's own test
+NDT_ATE_LIMIT = 0.0186
+# NDT without a prior: scans of the street with alleys (seed 7), whose side
+# walls face along the street. From the identity, 2 m voxels, the CPU rehearsal
+# of these scans left at most 0.0046 m of a 0.5 m step in 27 to 31 iterations
+# (0.0047 m and 26 to 31 on the H100; 60 are allowed, not path D's 35: a
+# quarter-size rehearsal took 36).
+ALLEY_SCANS = 4
+ALLEY_SEED = 7
+NDT_BLIND_KW = dict(NDT_KW, max_iterations=60)
+NDT_BLIND_STEP_LIMIT = 0.015      # m left of a step
+# 1.5 x the 0.004910 m measured on the H100 (0.004848 m in the CPU rehearsal);
+# first set to 0.15 m as NDT_ATE_LIMIT was
+NDT_BLIND_ATE_LIMIT = 0.0074
+BRUTE_GICP_POINTS = 8192
+# the brute GICP pair is moved further, so that the first matches are partly
+# wrong and several outer iterations run (4 in the CPU rehearsal): 8 deg about
+# y and this translation, on top of the pair's own motion
+BRUTE_GICP_DEG = 8.0
+BRUTE_GICP_T = (3.0, -2.0, 2.5)
+CARD_VS_CPU_POINTS = 20_000
 # phase 4's cloud past 2^30 bounding-box cells: 4000 clusters of 8 points
 FAR_LEAF = 0.1
 FAR_CAPACITY = 40_000
@@ -283,19 +343,19 @@ def device_breakdown(tag: str, fn) -> None:
 
 def phase2_path_a(nn1_mod, src, tgt, M, record):
     from pcl_tpu_torch.core.cloud import make_cloud
-    from pcl_tpu_torch.registration import icp as icp_mod
+    from pcl_tpu_torch.registration.icp import fitness_score, icp
     from pcl_tpu_torch.search import bruteforce
 
     source, target = make_cloud(src), make_cloud(tgt)
     kw = dict(max_corr_dist=math.inf, max_iterations=30)
-    icp_mod.icp(source, target, max_iterations=2)          # warm-up (libraries)
+    icp(source, target, max_iterations=2)          # warm-up (libraries)
 
     nn1_mod.nn1.launches = 0
-    res, secs = timed(lambda: icp_mod.icp(source, target, **kw))
-    fit = icp_mod.fitness_score(source, target, res.transform)
+    res, secs = timed(lambda: icp(source, target, **kw))
+    fit = fitness_score(source, target, res.transform)
     torch.cuda.synchronize()
     launches = nn1_mod.nn1.launches
-    record["launches"] = launches
+    record["launches_by_path"] = {"A": launches}
 
     it = int(res.iterations)
     code = int(res.convergence_state)
@@ -305,7 +365,7 @@ def phase2_path_a(nn1_mod, src, tgt, M, record):
           f"{float(res.fitness):.6f}, fitness_score {float(fit):.6f}, nn1 launches "
           f"{launches}; residual motion {dt:.2e} m {dang:.2e} deg; "
           f"{ms_iter:.3f} ms per ICP iteration [{card_line()}]", flush=True)
-    device_breakdown("phase 2", lambda: icp_mod.icp(source, target, **kw))
+    device_breakdown("phase 2", lambda: icp(source, target, **kw))
     check(launches >= it + 1, f"nn1 kernel launched {launches} times for {it} iterations")
     check(bool(res.converged), f"path A did not converge (code {code})")
     check(dt <= 1e-3 and dang <= 0.01, f"path A missed the motion: {dt} m, {dang} deg")
@@ -317,7 +377,7 @@ def phase2_path_a(nn1_mod, src, tgt, M, record):
     kernel_nn1 = bruteforce.nn1
     bruteforce.nn1 = nn1_mod.nn1_plain
     try:
-        plain, psecs = timed(lambda: icp_mod.icp(source, target, **kw))
+        plain, psecs = timed(lambda: icp(source, target, **kw))
     finally:
         bruteforce.nn1 = kernel_nn1
     pit = int(plain.iterations)
@@ -333,8 +393,8 @@ def phase2_path_a(nn1_mod, src, tgt, M, record):
     # absolute-MSE test waits for a fixed point that rounding decides)
     small_tgt = tgt[:2048]
     small_src = (small_tgt @ M[:3, :3].T + M[:3, 3]).astype(np.float32)
-    on_gpu = icp_mod.icp(make_cloud(small_src), make_cloud(small_tgt), **kw)
-    on_cpu = icp_mod.icp(make_cloud(small_src, device="cpu"),
+    on_gpu = icp(make_cloud(small_src), make_cloud(small_tgt), **kw)
+    on_cpu = icp(make_cloud(small_src, device="cpu"),
                          make_cloud(small_tgt, device="cpu"), **kw)
     sdiff = float((on_gpu.transform.cpu() - on_cpu.transform).abs().max())
     print(f"phase 2: 2048-point ICP, card {int(on_gpu.iterations)} iterations code "
@@ -348,15 +408,15 @@ def phase2_path_a(nn1_mod, src, tgt, M, record):
 
 def phase3_path_b(src, tgt, M):
     from pcl_tpu_torch.core.cloud import make_cloud
-    from pcl_tpu_torch.registration import icp as icp_mod
+    from pcl_tpu_torch.registration.icp import build_index, icp
 
     source, target = make_cloud(src), make_cloud(tgt)
     grid = (53, 53, 53)
-    table, bsecs = timed(lambda: icp_mod.build_index(target, 1.0, cell_cap=8, grid_dims=grid))
+    table, bsecs = timed(lambda: build_index(target, 1.0, cell_cap=8, grid_dims=grid))
     kw = dict(max_corr_dist=1.0, max_iterations=20, transformation_eps=0.0,
               abs_mse_eps=0.0, rel_mse_eps=0.0, cell_cap=8, grid_dims=grid, index=table)
-    icp_mod.icp(source, target, **dict(kw, max_iterations=2))     # warm-up
-    res, secs = timed(lambda: icp_mod.icp(source, target, **kw))
+    icp(source, target, **dict(kw, max_iterations=2))     # warm-up
+    res, secs = timed(lambda: icp(source, target, **kw))
     it = int(res.iterations)
     dt, dang = residual_motion(res.transform, M)
     ms_iter = secs * 1e3 / it
@@ -364,7 +424,7 @@ def phase3_path_b(src, tgt, M):
           f"{it} iterations, truncated {bool(res.truncated)}, fitness {float(res.fitness):.6f}, "
           f"correspondences {int(res.num_correspondences)}; residual motion {dt:.2e} m "
           f"{dang:.2e} deg; {ms_iter:.3f} ms per ICP iteration [{card_line()}]", flush=True)
-    device_breakdown("phase 3", lambda: icp_mod.icp(source, target, **kw))
+    device_breakdown("phase 3", lambda: icp(source, target, **kw))
     check(not bool(res.truncated), "path B truncated: raise cell_cap")
     check(it == 20, f"path B ran {it} iterations")
     check(0.8 * 3 * NOISE ** 2 < float(res.fitness) < 1.2 * 3 * NOISE ** 2,
@@ -373,17 +433,22 @@ def phase3_path_b(src, tgt, M):
     return ms_iter
 
 
-def make_street(seed: int = 0, n: int = SCENE_POINTS) -> np.ndarray:
+def make_street(seed: int = 0, n: int = SCENE_POINTS, alleys: bool = False) -> np.ndarray:
     """A KITTI-like street in the scanner's frame (z forward, y up, the
     sensor at the origin), points spread uniformly by area: a ground plane
     1.7 m below the sensor (40 m wide, z 0..200 m), two building facades
     10 m either side (12 m tall), 40 poles (r 0.15 m, 5 m tall) every 10 m
-    along both kerbs, and 10 car-sized boxes (4.5 x 1.8 x 1.5 m)."""
+    along both kerbs, and 10 car-sized boxes (4.5 x 1.8 x 1.5 m). With
+    ``alleys`` the buildings stand apart: every 12 m a side wall runs 10 m back
+    from either facade (12 m tall), a surface that faces along the street."""
     rng = np.random.default_rng(seed)
     g = -1.7
     # planar patches: (origin, edge u, edge v)
     quads = [((-20, g, 0), (40, 0, 0), (0, 0, 200))]
     quads += [((s * 10, g, 0), (0, 12, 0), (0, 0, 200)) for s in (-1, 1)]
+    if alleys:
+        quads += [((s * 10, g, z0), (s * 10, 0, 0), (0, 12, 0))
+                  for s in (-1, 1) for z0 in range(12, 200, 12)]
     for i in range(10):
         x0, z0 = (-4.9 if i % 2 else 3.1), 8.0 + 19.0 * i
         lo, (dx, dy, dz) = np.array([x0, g, z0]), (1.8, 1.5, 4.5)
@@ -441,6 +506,19 @@ def main_path_segments(segsum, cloud, leaf):
 
     order, seg_id, first = voxel_grid._sorted_cell_segments(cloud.xyz, cloud.mask, leaf)
     vals, seg = segsum.sorted_inputs(cloud.xyz, cloud.mask, order, seg_id)
+    return vals, seg, int(first.sum())
+
+
+def main_path_ndt_segments(cloud, resolution):
+    """Kernel B2's inputs as ``ndt.build_grid`` gives them: the 13 columns
+    (xyz, the nine products, the weight) sorted by hash bucket, their segment
+    ids, and the number of occupied buckets."""
+    from pcl_tpu_torch.registration.ndt import _bucket_segments, _buckets, build_grid
+
+    table_size = build_grid.__defaults__[0]
+    res = torch.as_tensor(resolution, dtype=torch.float32, device=cloud.xyz.device)
+    _, h = _buckets(cloud.xyz, cloud.mask, res, table_size)
+    vals, seg, _, first, _ = _bucket_segments(cloud.xyz, cloud.mask, h)
     return vals, seg, int(first.sum())
 
 
@@ -558,6 +636,15 @@ def phase4_segsum(segsum, scan0: np.ndarray):
     vals, seg, n_vox = main_path_segments(
         segsum, from_numpy(scan0, capacity=SCAN_CAPACITY), LEAF)
     errs.append(case("main path (scan 0, leaf 0.2)", vals, seg))
+    # path D gives the kernel another shape: the NDT grid of the raw scan, 13
+    # columns, runs of hundreds of rows (added by a block, four columns at a
+    # time only where W % 4 == 0)
+    g_vals, g_seg, g_cells = main_path_ndt_segments(
+        from_numpy(scan0, capacity=SCAN_CAPACITY), NDT_KW["resolution"])
+    check(g_vals.shape == (SCAN_CAPACITY, 13), f"NDT grid columns {tuple(g_vals.shape)}")
+    g_err = case(f"main path D (NDT grid of scan 0, resolution {NDT_KW['resolution']})",
+                 g_vals, g_seg)
+    errs.append(g_err)
     for bad, why in ((lambda: segsum.segment_sum_sorted(vals.double(), seg), "float64"),
                      (lambda: segsum.segment_sum_sorted(vals, seg.long()), "int64 ids"),
                      (lambda: segsum.segment_sum_sorted(vals.t().contiguous().t(), seg),
@@ -603,6 +690,16 @@ def phase4_segsum(segsum, scan0: np.ndarray):
     print(f"phase 4: launch floor: an empty kernel through the same ctypes path "
           f"{floor_ms * 1e3:.1f} us per call (CUDA events), {floor_host * 1e6:.1f} us of host "
           f"time per call [{card_line()}]", flush=True)
+    g_lengths = torch.bincount(torch.clamp(g_seg, max=g_cells), minlength=g_cells + 1)
+    g_ms = cuda_ms(lambda: segsum.segment_sum_sorted(g_vals, g_seg), reps=200)
+    g_plain_ms = cuda_ms(lambda: segsum.segment_sum_sorted_plain(g_vals, g_seg), reps=20)
+    g_library_ms = cuda_ms(lambda: torch.segment_reduce(g_vals, "sum", lengths=g_lengths),
+                           reps=20)
+    g_bound_s, g_bound_by = segsum_bound_ms(g_vals.shape[0], g_vals.shape[1], g_cells)
+    print(f"phase 4: segsum kernel {g_ms * 1e3:.1f} us per call at N={g_vals.shape[0]} "
+          f"W={g_vals.shape[1]} ({g_cells} occupied buckets: the NDT grid), plain "
+          f"{g_plain_ms * 1e3:.1f} us, torch.segment_reduce {g_library_ms * 1e3:.1f} us, bound "
+          f"{g_bound_s * 1e6:.2f} us ({g_bound_by}) [{card_line()}]", flush=True)
     print(f"phase 4: segsum kernel {ms * 1e3:.1f} us per call at N={vals.shape[0]} "
           f"W={vals.shape[1]} ({n_vox} voxels), plain {plain_ms * 1e3:.1f} us, "
           f"torch.segment_reduce {library_ms * 1e3:.1f} us, bound {bound_s * 1e6:.2f} us "
@@ -611,7 +708,12 @@ def phase4_segsum(segsum, scan0: np.ndarray):
     return {"name": "segsum", "route": "cuda", "source": "pcl_tpu_torch/csrc/segsum.cu",
             "replaces": "pcl_tpu/ops/pallas_segsum.py:38", "launches": None,
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": library_ms,
+            # the same numbers at path D's shape (N x 13, the NDT grid)
+            "ndt_grid": {"n": g_vals.shape[0], "w": g_vals.shape[1], "segments": g_cells,
+                         "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain_ms,
+                         "bound_ms": g_bound_s * 1e3, "bound_by": g_bound_by,
+                         "library_ms": g_library_ms}}
 
 
 def front_end(raw, log=None):
@@ -619,7 +721,7 @@ def front_end(raw, log=None):
     point-to-plane odometry_sequence. Returns (clouds, poses, [(ICP result,
     seconds)]); with ``log``, prints each stage's time."""
     from pcl_tpu_torch import features, filters, search
-    from pcl_tpu_torch.registration import icp as icp_mod
+    from pcl_tpu_torch.registration.icp import icp
     from pcl_tpu_torch.registration import trajectory
 
     clouds = []
@@ -636,7 +738,7 @@ def front_end(raw, log=None):
     results = []
 
     def register(s, t):
-        res, secs = timed(lambda: icp_mod.icp(s, t, **ICP_KW))
+        res, secs = timed(lambda: icp(s, t, **ICP_KW))
         results.append((res, secs))
         return res
 
@@ -644,24 +746,25 @@ def front_end(raw, log=None):
     return clouds, poses, results
 
 
-def phase5_path_c(segsum, nn1_mod, scans, golden, record):
+def phase5_path_c(segsum, nn1_mod, scans, golden, record_b1, record_b2):
     """Path C: the odometry front end at KITTI scan size."""
     from pcl_tpu_torch import features, filters, search
     from pcl_tpu_torch.core import geometry
     from pcl_tpu_torch.core.cloud import Cloud, from_numpy
-    from pcl_tpu_torch.registration import icp as icp_mod
+    from pcl_tpu_torch.registration.icp import icp
     from pcl_tpu_torch.registration import trajectory
 
     raw = [from_numpy(s, capacity=SCAN_CAPACITY) for s in scans]
     warm = [features.estimate_normals(filters.voxel_downsample(c, LEAF), k=NORMAL_K)
             for c in raw[:2]]
-    icp_mod.icp(warm[1], warm[0], **dict(ICP_KW, max_iterations=2))      # warm-up
+    icp(warm[1], warm[0], **dict(ICP_KW, max_iterations=2))      # warm-up
 
     segsum.segment_sum_sorted.launches = 0
     nn1_mod.nn1.launches = 0
     (clouds, poses, results), secs = timed(lambda: front_end(raw, log="phase 5"))
     launches = segsum.segment_sum_sorted.launches
-    record["launches"] = launches
+    record_b1["launches_by_path"]["C"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"] = {"C": launches}
     print(f"phase 5: path C {N_SCANS} scans in {secs * 1e3:.1f} ms; segsum launches "
           f"{launches}, nn1 launches {nn1_mod.nn1.launches}", flush=True)
     check(launches == N_SCANS, f"segsum launched {launches} times for {N_SCANS} scans")
@@ -680,7 +783,7 @@ def phase5_path_c(segsum, nn1_mod, scans, golden, record):
           f"{rpe.trans_rmse:.6f} m, {rpe.rot_rmse:.3e} rad per step", flush=True)
     check(ate.rmse <= 0.03, f"path C ATE {ate.rmse} m over 0.03 m")
     device_breakdown("phase 5 (one ICP pair)",
-                     lambda: icp_mod.icp(clouds[1], clouds[0], **ICP_KW))
+                     lambda: icp(clouds[1], clouds[0], **ICP_KW))
 
     # scan 0 of the main path against the port's CPU run: the downsample
     # (B2 on the card, its plain version on the CPU) of the same raw scan ...
@@ -750,6 +853,306 @@ def phase5_path_c(segsum, nn1_mod, scans, golden, record):
     return sum(t for _, t in results) * 1e3 / n_pairs, ate.rmse
 
 
+def subsample(cloud, n):
+    """Every k-th valid point of a cloud, at most ``n``, as a host array."""
+    xyz = cloud.xyz[cloud.mask].cpu().numpy()
+    return xyz[:: max(1, -(-len(xyz) // n))][:n]
+
+
+def pose_gap(a: torch.Tensor, b: torch.Tensor):
+    """Translation (m) and rotation (rad) between two 4x4 transforms."""
+    a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+    R = a[:3, :3] @ b[:3, :3].T
+    skew = 0.5 * np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return (float(np.linalg.norm(a[:3, 3] - b[:3, 3])),
+            math.atan2(np.linalg.norm(skew), 0.5 * (np.trace(R) - 1)))
+
+
+def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1, record_b2):
+    """Path D: the odometry command line's own flow, with GICP and NDT.
+    ``alley`` is ``(scans, golden)`` of the street with alleys; ``src``,
+    ``tgt``, ``M`` the noisy pair of paths A and B."""
+    import pcl_tpu_torch.registration as registration
+    from pcl_tpu_torch import filters, io
+    from pcl_tpu_torch.core.cloud import from_numpy, make_cloud
+    from pcl_tpu_torch.registration import trajectory
+    from pcl_tpu_torch.registration.gicp import gicp, regularized_covariances
+    from pcl_tpu_torch.registration.ndt import build_grid, ndt
+    from pcl_tpu_torch.tools import odometry as odometry_tool
+    from pcl_tpu_torch.tools import voxel_grid as voxel_grid_tool
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the scans as binary_compressed PCD files, the poses in KITTI format
+        raw_files = [os.path.join(tmp, f"scan{i}.pcd") for i in range(len(scans))]
+        _, secs = timed(lambda: [io.save(f, from_numpy(s, capacity=SCAN_CAPACITY),
+                                         data="binary_compressed")
+                                 for f, s in zip(raw_files, scans)])
+        golden_file = os.path.join(tmp, "golden.txt")
+        odometry_tool._save_poses(golden_file, golden)
+        raw, lsecs = timed(lambda: [io.load(f) for f in raw_files])
+        size = sum(os.path.getsize(f) for f in raw_files)
+        print(f"phase 6: {len(scans)} scans written as binary_compressed PCD in "
+              f"{secs * 1e3:.1f} ms ({size / 1e6:.2f} MB for "
+              f"{sum(s.nbytes for s in scans) / 1e6:.2f} MB of points), read back in "
+              f"{lsecs * 1e3:.1f} ms", flush=True)
+        for cloud, s in zip(raw, scans):
+            check(bool(cloud.mask.all())
+                  and torch.equal(cloud.xyz.cpu(), torch.from_numpy(s)),
+                  "a scan read back from its PCD file differs from what was written")
+        # poses are written with 9 significant digits
+        check(np.abs(odometry_tool._load_poses(golden_file) - golden).max() <= 1e-7,
+              "golden poses do not read back")
+
+        # warm-up of both aligners (libraries, allocator), outside the counts
+        warm = [make_cloud(subsample(c, 20_000)) for c in raw[:2]]
+        gicp(warm[1], warm[0], **dict(GICP_KW, max_iterations=2))
+        ndt(warm[1], warm[0], **dict(NDT_KW, max_iterations=2))
+
+        segsum.segment_sum_sorted.launches = 0
+        nn1_mod.nn1.launches = 0
+
+        # 2. tools.voxel_grid on each file: one B2 launch each
+        ds_files = [os.path.join(tmp, f"ds{i}.pcd") for i in range(len(scans))]
+        with contextlib.redirect_stdout(pyio.StringIO()) as out:
+            _, secs = timed(lambda: [voxel_grid_tool.main([f, o, "-leaf", str(LEAF)])
+                                     for f, o in zip(raw_files, ds_files)])
+        print("phase 6: " + out.getvalue().strip().replace("\n", "; "), flush=True)
+        b2_tool = segsum.segment_sum_sorted.launches
+        print(f"phase 6: tools.voxel_grid on {len(scans)} files in {secs * 1e3:.1f} ms "
+              f"(load, downsample, save), segsum launches {b2_tool}", flush=True)
+        check(b2_tool == len(scans), f"tools.voxel_grid launched B2 {b2_tool} times")
+        clouds = [io.load(f) for f in ds_files]
+
+        # 3. GICP odometry over the downsampled files, with the cell-list
+        # arguments tools.odometry gives gicp: the covariance cells and both
+        # caps from the host probe, measured on the hashed tables (some of the
+        # ~8000 occupied cells of a scan share a bucket of 2^17)
+        for i, c in enumerate(clouds):
+            kw = odometry_tool.probed_cells(c, c, "gicp", GICP_KW["max_corr_dist"])
+            (_, trunc), secs = timed(lambda: regularized_covariances(
+                c.xyz, c.mask, GICP_K, cell_size=kw["cov_cell_size"],
+                cell_cap=kw["cov_cell_cap"], with_trunc=True))
+            print(f"phase 6: scan {i}: {c.capacity} voxels, covariance pass {secs * 1e3:.3f} ms "
+                  f"(cell {kw['cov_cell_size']:.4f} m, cap {kw['cov_cell_cap']}, correspondence "
+                  f"cap {kw['cell_cap']}, truncated {bool(trunc)}) [{card_line()}]", flush=True)
+        index = {id(c): i for i, c in enumerate(clouds)}
+        gicp_results = []
+
+        def register_gicp(s, t):
+            res, secs = timed(lambda: gicp(s, t, **GICP_KW, **odometry_tool.probed_cells(
+                s, t, "gicp", GICP_KW["max_corr_dist"])))
+            gicp_results.append((res, secs))
+            return res
+
+        poses, secs = timed(lambda: trajectory.odometry_sequence(clouds, register=register_gicp))
+        for k, (res, t) in enumerate(gicp_results):
+            it = int(res.iterations)
+            print(f"phase 6: GICP pair {k + 1}->{k}: {t * 1e3:.3f} ms, {it} iterations "
+                  f"({t * 1e3 / max(it, 1):.3f} ms per iteration, host probe and covariances "
+                  f"included), "
+                  f"converged {bool(res.converged)}, truncated {bool(res.truncated)}, fitness "
+                  f"{float(res.fitness):.6f} [{card_line()}]", flush=True)
+            check(bool(res.converged), f"path D GICP pair {k + 1} did not converge")
+            check(not bool(res.truncated), f"path D GICP pair {k + 1} truncated")
+        gicp_ate = trajectory.trajectory_ate(poses, golden, align=False)
+        gicp_rpe = trajectory.trajectory_rpe(poses, golden)
+        print(f"phase 6: GICP sequence {secs * 1e3:.1f} ms; ATE (unaligned) rmse "
+              f"{gicp_ate.rmse:.6f} m, max {gicp_ate.max:.6f} m; RPE {gicp_rpe.trans_rmse:.6f} m, "
+              f"{gicp_rpe.rot_rmse:.3e} rad per step", flush=True)
+        check(gicp_ate.rmse <= 0.03, f"path D GICP ATE {gicp_ate.rmse} m over 0.03 m")
+
+        # 4. NDT: each downsampled scan against the raw scan before it, from
+        # an odometry prior (see NDT_PRIOR_ERROR)
+        from scipy.spatial.transform import Rotation
+
+        prior_rng = np.random.default_rng(6)
+        priors, true_steps = [], []
+        for k in range(1, len(scans)):
+            step = np.linalg.inv(golden[k - 1]) @ golden[k]
+            off = np.eye(4)
+            d = np.append(prior_rng.normal(size=2), 0.0)
+            axis = prior_rng.normal(size=3)
+            off[:3, 3] = d * NDT_PRIOR_ERROR[0] / np.linalg.norm(d)
+            off[:3, :3] = Rotation.from_rotvec(
+                axis * NDT_PRIOR_ERROR[1] / np.linalg.norm(axis)).as_matrix()
+            true_steps.append(step)
+            priors.append(torch.tensor(off @ step, dtype=torch.float32))
+        b2_before = segsum.segment_sum_sorted.launches
+        ndt_results = []
+
+        def register_ndt(s, t, init):
+            res, secs = timed(lambda: ndt(s, raw[index[id(t)]], init_transform=init, **NDT_KW))
+            ndt_results.append((res, secs))
+            return res
+
+        poses, secs = timed(lambda: trajectory.odometry_sequence(
+            clouds, register=register_ndt, init_deltas=priors))
+        b2_ndt = segsum.segment_sum_sorted.launches - b2_before
+        for k, ((res, t), step) in enumerate(zip(ndt_results, true_steps)):
+            it = int(res.iterations)
+            left = res.transform.double().cpu().numpy() @ np.linalg.inv(step)
+            rot = float(np.linalg.norm(Rotation.from_matrix(left[:3, :3]).as_rotvec()))
+            print(f"phase 6: NDT pair {k + 1}->{k}: {t * 1e3:.3f} ms, {it} iterations "
+                  f"({t * 1e3 / max(it, 1):.3f} ms per iteration, grid included), converged "
+                  f"{bool(res.converged)}, score {float(res.score):.6f}; left of the prior's "
+                  f"error: across the street and up {np.linalg.norm(left[:2, 3]):.4f} m, along "
+                  f"{abs(left[2, 3]):.4f} m, rotation {rot:.2e} rad [{card_line()}]", flush=True)
+            check(bool(res.converged), f"path D NDT pair {k + 1} did not converge")
+            # under a third of the prior's error across the street (rehearsed on
+            # the CPU: at most 0.005 m), a quarter in rotation (1.3e-4 rad)
+            check(np.linalg.norm(left[:2, 3]) <= 0.015 and rot <= 5e-4,
+                  f"path D NDT pair {k + 1} did not correct its prior")
+        ndt_ate = trajectory.trajectory_ate(poses, golden, align=False)
+        ndt_rpe = trajectory.trajectory_rpe(poses, golden)
+        print(f"phase 6: NDT sequence (resolution {NDT_KW['resolution']} m, priors "
+              f"{NDT_PRIOR_ERROR[0]} m and {NDT_PRIOR_ERROR[1]} rad off) {secs * 1e3:.1f} ms, "
+              f"segsum launches {b2_ndt}; ATE (unaligned) rmse {ndt_ate.rmse:.6f} m, max "
+              f"{ndt_ate.max:.6f} m; RPE {ndt_rpe.trans_rmse:.6f} m, {ndt_rpe.rot_rmse:.3e} rad "
+              f"per step [{card_line()}]", flush=True)
+        check(b2_ndt == len(scans) - 1, f"NDT launched B2 {b2_ndt} times for "
+                                        f"{len(scans) - 1} grids")
+        check(ndt_ate.rmse <= NDT_ATE_LIMIT, f"path D NDT ATE {ndt_ate.rmse} m over "
+                                             f"{NDT_ATE_LIMIT} m")
+
+        # 4b. NDT from the identity, where the scene lets it see every axis:
+        # the street with alleys, each downsampled scan against the raw scan
+        # before it (one B2 launch per downsample and one per grid)
+        alley_scans, alley_golden = alley
+        alley_raw = [from_numpy(a, capacity=SCAN_CAPACITY) for a in alley_scans]
+        b2_before = segsum.segment_sum_sorted.launches
+        alley_ds = [filters.voxel_downsample(c, LEAF) for c in alley_raw]
+        alley_index = {id(c): i for i, c in enumerate(alley_ds)}
+        blind_results = []
+
+        def register_blind(s, t):
+            res, secs = timed(lambda: ndt(s, alley_raw[alley_index[id(t)]], **NDT_BLIND_KW))
+            blind_results.append((res, secs))
+            return res
+
+        poses = trajectory.odometry_sequence(alley_ds, register=register_blind)
+        b2_blind = segsum.segment_sum_sorted.launches - b2_before
+        for k, (res, t) in enumerate(blind_results):
+            step = np.linalg.inv(alley_golden[k]) @ alley_golden[k + 1]
+            left_t, left_r = pose_gap(res.transform, torch.from_numpy(step))
+            print(f"phase 6: NDT from the identity, alley pair {k + 1}->{k}: {t * 1e3:.3f} ms, "
+                  f"{int(res.iterations)} iterations, converged {bool(res.converged)}, score "
+                  f"{float(res.score):.6f}; left of the {np.linalg.norm(step[:3, 3]):.3f} m step "
+                  f"{left_t:.4f} m, {left_r:.2e} rad [{card_line()}]", flush=True)
+            check(bool(res.converged), f"NDT from the identity: pair {k + 1} did not converge")
+            check(left_t <= NDT_BLIND_STEP_LIMIT and left_r <= 1e-3,
+                  f"NDT from the identity left {left_t} m, {left_r} rad of pair {k + 1}'s step")
+        blind_ate = trajectory.trajectory_ate(poses, alley_golden, align=False)
+        print(f"phase 6: NDT from the identity over {len(alley_scans)} alley scans: segsum "
+              f"launches {b2_blind}; ATE (unaligned) rmse {blind_ate.rmse:.6f} m, max "
+              f"{blind_ate.max:.6f} m", flush=True)
+        check(b2_blind == 2 * len(alley_scans) - 1, f"alley NDT launched B2 {b2_blind} times")
+        check(blind_ate.rmse <= NDT_BLIND_ATE_LIMIT,
+              f"NDT from the identity: ATE {blind_ate.rmse} m over {NDT_BLIND_ATE_LIMIT} m")
+
+        # 5. tools.odometry itself: the same probed cells, so the same poses
+        tool_results = []
+        plain_gicp = registration.gicp
+
+        def recording_gicp(*a, **kw):
+            tool_results.append(plain_gicp(*a, **kw))
+            return tool_results[-1]
+
+        registration.gicp = recording_gicp
+        try:
+            with contextlib.redirect_stdout(pyio.StringIO()) as out:
+                rc, secs = timed(lambda: odometry_tool.main(
+                    [*ds_files, "--method", "gicp", "--max-corr-dist", "1.0",
+                     "--golden", golden_file]))
+        finally:
+            registration.gicp = plain_gicp
+        line = out.getvalue().strip()
+        found = re.search(r"rmse=(\S+) m \(unaligned\)", line)
+        print(f"phase 6: tools.odometry --method gicp: return code {rc}, {secs * 1e3:.1f} ms; "
+              f"{line}; truncated {[bool(r.truncated) for r in tool_results]}, iterations "
+              f"{[int(r.iterations) for r in tool_results]}", flush=True)
+        check(rc == 0 and len(tool_results) == len(scans) - 1, "tools.odometry failed")
+        check(found is not None and float(found.group(1)) <= 0.03,
+              "tools.odometry printed no ATE within 0.03 m")
+        check(not any(bool(r.truncated) for r in tool_results), "tools.odometry truncated")
+        tool_gap = max(pose_gap(a.transform, b.transform)[0]
+                       for a, (b, _) in zip(tool_results, gicp_results))
+        check(tool_gap <= 1e-6, f"tools.odometry and step 3 differ by {tool_gap} m")
+
+    # 6. B1 through GICP: an infinite gate takes the brute branch. The noisy
+    # pair of paths A and B cut to 8,192 points and moved further; what noise
+    # of sigma leaves of a motion is about 5 sigma / sqrt(N) = 2.8e-3 m
+    ang = math.radians(BRUTE_GICP_DEG)
+    M2 = np.eye(4)
+    M2[:3, :3] = [[math.cos(ang), 0, math.sin(ang)], [0, 1, 0], [-math.sin(ang), 0, math.cos(ang)]]
+    M2[:3, 3] = BRUTE_GICP_T
+    small_tgt = tgt[:BRUTE_GICP_POINTS]
+    small_src = (src[:BRUTE_GICP_POINTS] @ M2[:3, :3].T + M2[:3, 3]).astype(np.float32)
+    b1_before = nn1_mod.nn1.launches
+    brute, secs = timed(lambda: gicp(make_cloud(small_src), make_cloud(small_tgt)))
+    b1_gicp = nn1_mod.nn1.launches - b1_before
+    dt, dang = residual_motion(brute.transform, M2 @ M)
+    floor = 5 * NOISE / math.sqrt(BRUTE_GICP_POINTS)
+    print(f"phase 6: brute GICP on {BRUTE_GICP_POINTS} noisy points: {int(brute.iterations)} "
+          f"iterations in {secs * 1e3:.3f} ms, converged {bool(brute.converged)}, nn1 launches "
+          f"{b1_gicp}; residual motion {dt:.2e} m (limit {floor:.2e}) {dang:.2e} deg", flush=True)
+    check(b1_gicp == int(brute.iterations) >= 3,
+          f"brute GICP launched B1 {b1_gicp} times in {int(brute.iterations)} iterations")
+    check(bool(brute.converged) and dt <= floor and dang <= 0.01,
+          f"brute GICP missed the motion: {dt} m, {dang} deg")
+
+    # the main path's counts end here
+    b1_d, b2_d = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    check(b2_d == b2_tool + b2_ndt + b2_blind and b1_d == b1_gicp,
+          "path D's launch counts do not add up")
+    record_b1["launches_by_path"]["D"] = b1_d
+    record_b2["launches_by_path"]["D"] = b2_d
+
+    # 7. the card against the port's CPU run, one pair cut to 20,000 points
+    # (poses, not covariances: neighbour ties decide single neighbourhoods).
+    # NDT is compared after five iterations from its prior: later on an
+    # iteration gains less than the float32 rounding of the score (1e-6 of
+    # ~1e5), which then decides the Armijo test, so two devices take other
+    # iterates through the last millimetre; the whole runs are printed.
+    s20, t20 = subsample(clouds[1], CARD_VS_CPU_POINTS), subsample(clouds[0], CARD_VS_CPU_POINTS)
+    runs = (("GICP", lambda s, t: gicp(s, t, **GICP_KW, **odometry_tool.probed_cells(
+                s, t, "gicp", GICP_KW["max_corr_dist"])), True),
+            ("NDT, 5 iterations", lambda s, t: ndt(s, t, init_transform=priors[0],
+                                                   **dict(NDT_KW, max_iterations=5)), True),
+            ("NDT, whole run", lambda s, t: ndt(s, t, init_transform=priors[0], **NDT_KW), False))
+    for name, run, checked in runs:
+        on_card, csecs = timed(lambda: run(make_cloud(s20), make_cloud(t20)))
+        on_cpu, hsecs = timed(lambda: run(make_cloud(s20, device="cpu"),
+                                          make_cloud(t20, device="cpu")))
+        gap_t, gap_r = pose_gap(on_card.transform, on_cpu.transform)
+        print(f"phase 6: {name} on {len(s20)} x {len(t20)} points, card {csecs * 1e3:.1f} ms "
+              f"{int(on_card.iterations)} iterations, CPU {hsecs * 1e3:.1f} ms "
+              f"{int(on_cpu.iterations)} iterations: |t - t_cpu| {gap_t:.3e} m, rotation "
+              f"{gap_r:.3e} rad" + ("" if checked else " (printed, not checked)"), flush=True)
+        if checked:
+            check(gap_t <= 1e-3 and gap_r <= 1e-4,
+                  f"{name} on the card disagrees with the CPU run: {gap_t} m, {gap_r} rad")
+
+    # 8. where the time goes
+    cells = odometry_tool.probed_cells(clouds[1], clouds[0], "gicp", GICP_KW["max_corr_dist"])
+    device_breakdown("phase 6 (one GICP pair, probed cells given)",
+                     lambda: gicp(clouds[1], clouds[0], **cells, **GICP_KW))
+    device_breakdown("phase 6 (one NDT pair)", lambda: ndt(clouds[1], raw[0], **NDT_KW))
+    blind, secs = timed(lambda: ndt(clouds[1], raw[0], **NDT_KW))
+    left = blind.transform.double().cpu().numpy() @ np.linalg.inv(true_steps[0])
+    print(f"phase 6: NDT pair 1->0 from the identity (no prior; printed, not checked): "
+          f"{int(blind.iterations)} iterations in {secs * 1e3:.1f} ms, converged "
+          f"{bool(blind.converged)}; left of the {np.linalg.norm(true_steps[0][:3, 3]):.3f} m "
+          f"step: across the street and up {np.linalg.norm(left[:2, 3]):.4f} m, along "
+          f"{abs(left[2, 3]):.4f} m", flush=True)
+    grid, secs = timed(lambda: build_grid(raw[0].xyz, raw[0].mask, NDT_KW["resolution"]))
+    print(f"phase 6: one NDT grid of scan 0 ({SCAN_CAPACITY} points, resolution "
+          f"{NDT_KW['resolution']} m): {secs * 1e3:.3f} ms, {int(grid.valid.sum())} valid "
+          f"voxels [{card_line()}]", flush=True)
+    n_pairs = len(scans) - 1
+    return (sum(t for _, t in gicp_results) * 1e3 / n_pairs, gicp_ate.rmse,
+            sum(t for _, t in ndt_results) * 1e3 / n_pairs, ndt_ate.rmse)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -778,14 +1181,41 @@ def main() -> int:
     print(f"set-up: street of {SCENE_POINTS} points, {N_SCANS} scans of "
           f"{[len(s) for s in scans]} points in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
+    alley = trajectory.make_virtual_scan_sequence(
+        make_street(ALLEY_SEED, alleys=True), ALLEY_SCANS, np.random.default_rng(ALLEY_SEED),
+        **SEQUENCE_KW)
+    print(f"set-up: street with alleys, {ALLEY_SCANS} scans of {[len(a) for a in alley[0]]} "
+          f"points in {time.perf_counter() - t0:.1f} s", flush=True)
+
     src, tgt, M = make_pair(N_POINTS)
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        clock.append(time.perf_counter())
+        print(f"{name} took {clock[-1] - clock[-2]:.1f} s", flush=True)
+
     record = phase1_nn1(nn1_mod, src, tgt)
+    lap("phase 1")
     ms_a = phase2_path_a(nn1_mod, src, tgt, M, record)
+    lap("phase 2")
     ms_b = phase3_path_b(src, tgt, M)
+    lap("phase 3")
     record_b2 = phase4_segsum(segsum, scans[0])
-    ms_pair, ate = phase5_path_c(segsum, nn1_mod, scans, golden, record_b2)
+    lap("phase 4")
+    ms_pair, ate = phase5_path_c(segsum, nn1_mod, scans, golden, record, record_b2)
+    lap("phase 5")
+    ms_gicp, ate_gicp, ms_ndt, ate_ndt = phase6_path_d(segsum, nn1_mod, scans, golden, alley,
+                                                       src, tgt, M, record, record_b2)
+    lap("phase 6")
+    for rec in (record, record_b2):
+        # launches on the main paths: A (brute ICP), C (front end), D (GICP, NDT)
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
-          f"path C {ms_pair:.3f} ms per ICP pair, ATE {ate:.6f} m; nn1 {record['ms']:.3f} "
+          f"path C {ms_pair:.3f} ms per ICP pair, ATE {ate:.6f} m; path D GICP {ms_gicp:.3f} ms "
+          f"per pair, ATE {ate_gicp:.6f} m, NDT {ms_ndt:.3f} ms per pair, ATE {ate_ndt:.6f} m; "
+          f"nn1 {record['ms']:.3f} "
           f"ms/sweep (bound {record['bound_ms']:.3f} ms, plain {record['plain_ms']:.1f} ms); "
           f"segsum {record_b2['ms'] * 1e3:.1f} us (bound {record_b2['bound_ms'] * 1e3:.2f} us, "
           f"plain {record_b2['plain_ms'] * 1e3:.1f} us, library "

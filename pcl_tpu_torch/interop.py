@@ -2,7 +2,7 @@
 
 Turns arrays that the JAX package produced, already converted to numpy by
 the caller (``np.asarray(jax_array)``), into the port's objects, so that a
-cloud or a cell table built there can be used here. This module reads only
+cloud, a cell table or an NDT grid built there can be used here. This module reads only
 numpy arrays and plain values; it imports nothing of the JAX package.
 """
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from pcl_tpu_torch.core.cloud import Cloud, _device
+from pcl_tpu_torch.registration.ndt import NDTGrid
 from pcl_tpu_torch.search.cell_list import CellTable
 
 
@@ -63,4 +64,33 @@ def cell_table_from_arrays(
         dims=None if dims is None else tuple(int(d) for d in dims),
         origin=None if origin is None else torch.tensor(
             np.asarray(origin, np.float32), device=dev),
+    )
+
+
+def ndt_grid_from_arrays(
+    resolution,
+    table_size: int,
+    mean: np.ndarray,
+    icov: np.ndarray,
+    valid: np.ndarray,
+    ckey1: np.ndarray,
+    ckey2: np.ndarray,
+    device=None,
+) -> NDTGrid:
+    """An NDTGrid holding voxel Gaussians built elsewhere, scored as they
+    are. The JAX package's ``packed`` rows repeat these arrays in a TPU
+    layout and are not needed."""
+    dev = _device(device)
+    mean = np.asarray(mean, np.float32)
+    if mean.shape != (table_size + 1, 3):
+        raise ValueError(f"NDT grid mean {mean.shape} does not match "
+                         f"table_size={table_size}")
+    return NDTGrid(
+        resolution=torch.tensor(np.float32(resolution), device=dev),
+        table_size=int(table_size),
+        mean=torch.tensor(mean, device=dev),
+        icov=torch.tensor(np.asarray(icov, np.float32), device=dev),
+        valid=torch.tensor(np.asarray(valid, bool), device=dev),
+        ckey1=torch.tensor(np.asarray(ckey1, np.int32), device=dev),
+        ckey2=torch.tensor(np.asarray(ckey2, np.int32), device=dev),
     )

@@ -12,6 +12,10 @@ anew and an unchanged one is loaded as it is. ``nvcc``'s output (with
 ``-Xptxas -v``: registers, shared memory and spills per kernel) is kept beside
 the library as ``<name>-<hash>.log``. A failed build raises; nothing falls back
 to the plain PyTorch versions.
+
+``host_library`` builds a host C source (``csrc/<name>.c``: file parsing, no
+device code) the same way with the host's C compiler, or ``nvcc -x c`` where
+there is none; these are not among the kernel libraries ``build_all`` counts.
 """
 
 from __future__ import annotations
@@ -104,6 +108,45 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         with _lock:
             _loaded[name] = lib
+    return lib
+
+
+HOST_C_FLAGS = ["-O3", "-shared", "-fPIC"]
+
+
+def _host_compiler() -> List[str]:
+    """The command that compiles host C: ``cc`` or ``gcc``, else nvcc taking
+    the file as C."""
+    for cc in ("cc", "gcc"):
+        found = shutil.which(cc)
+        if found:
+            return [found, *HOST_C_FLAGS]
+    return [_nvcc(), "-x", "c", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of the host C source ``csrc/<name>.c``, built first
+    if needed. Raises ``RuntimeError`` where the machine has no compiler or
+    the build fails."""
+    key = f"{name}.c"
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is not None:
+            return lib
+        src = CSRC / key
+        cmd = _host_compiler()
+        digest = hashlib.sha256(src.read_bytes() + " ".join(cmd[1:]).encode())
+        out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.parent / f"{out.stem}.{os.getpid()}.tmp"
+            done = subprocess.run([*cmd, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"{cmd[0]} failed for csrc/{key} (exit "
+                                   f"{done.returncode}):\n{done.stdout}{done.stderr}")
+            os.replace(tmp, out)
+        lib = _loaded[key] = ctypes.CDLL(str(out))
     return lib
 
 

@@ -28,6 +28,9 @@ __all__ = ["bruteforce", "cell_list", "organized", "knn", "radius_search", "nn1"
 # gives way to the cell list; the one threshold of the search dispatch and of
 # estimate_normals' density probe
 _AUTO_PAIRS = 1e9
+# rows of the hashed cell table that every search here builds by default, and
+# on which the density probe therefore measures its cap
+_TABLE_SIZE = 1 << 17
 
 _HASHGRID = ("backend='hashgrid' is not ported yet (ROADMAP.md, queue A, item "
              "12b: search/hashgrid.py); use 'cell' or 'bruteforce'")
@@ -46,11 +49,12 @@ def knn_density_radius(xyz: torch.Tensor, mask: torch.Tensor, k: int) -> torch.T
 
 
 def _occupancy_cap(x: np.ndarray, r: float, limit: int) -> int:
-    ijk = np.floor(x / r).astype(np.int64)
-    ijk -= ijk.min(0)
-    dims = ijk.max(0) + 1
-    key = (ijk[:, 2] * dims[1] + ijk[:, 1]) * dims[0] + ijk[:, 0]
-    occ = int(np.bincount(np.unique(key, return_inverse=True)[1]).max())
+    """The bucket cap for points ``x`` at cell size ``r``: the fullest bucket
+    of the hashed table of ``_TABLE_SIZE`` rows that ``cell_list.build`` would
+    make of them (cells that share a bucket add up, as they do there), as a
+    power-of-two multiple of 24 up to ``limit``."""
+    cells = cell_list._cell_coords(torch.from_numpy(x), torch.tensor(r, dtype=torch.float32))
+    occ = int(torch.bincount(cell_list._hash(cells, _TABLE_SIZE).long()).max())
     cap = 24
     while cap < occ and cap < limit:
         cap *= 2
@@ -68,8 +72,11 @@ def auto_cell_params(target, k: int, cell_size: Optional[float] = None,
     """Host-side density probe: ``(cell_size, bucket_cap)`` that make the
     cell backend exact for this cloud's kNN. The cell size is the 95th
     percentile of the k-th-neighbour distance over a sample of the points
-    (a scipy kd-tree on a host copy); the cap is the largest cell occupancy
-    at that size, as a power-of-two multiple of 24 up to ``limit``."""
+    (a scipy kd-tree on a host copy); the cap is the largest occupancy of a
+    bucket of the hashed table at that size (``_TABLE_SIZE`` rows, the
+    default of every search that builds one), as a power-of-two multiple of
+    24 up to ``limit``. The JAX package counts cells, not buckets: two
+    occupied cells that share a bucket can overflow its cap."""
     x = _host_points(target)
     if len(x) <= k + 1:
         return (float(cell_size) if cell_size is not None else 1.0, 24)
@@ -112,7 +119,7 @@ def _queries(queries) -> torch.Tensor:
 
 def knn(target, queries, k: int, backend: str = "auto",
         cell_size: Optional[float] = None, cell_cap: int = 24,
-        table_size: int = 1 << 17, return_trunc: bool = False, **kw):
+        table_size: int = _TABLE_SIZE, return_trunc: bool = False, **kw):
     """k nearest neighbours of each query: ``(idx, sqdist, valid)``, and
     ``truncated [Q]`` with ``return_trunc`` (always False on the brute
     backend). The cell backend is exact for neighbours within its horizon
@@ -134,7 +141,7 @@ def knn(target, queries, k: int, backend: str = "auto",
 
 
 def radius_search(target, queries, r: float, cap: int, backend: str = "auto",
-                  cell_cap: int = 32, table_size: int = 1 << 17,
+                  cell_cap: int = 32, table_size: int = _TABLE_SIZE,
                   return_trunc: bool = False, **kw):
     """Neighbours within ``r`` (up to the ``cap`` nearest): ``(idx, sqdist,
     valid, count)``, and ``truncated [Q]`` with ``return_trunc``."""

@@ -5,10 +5,12 @@ Counterpart of ``pcl_tpu/search/bruteforce.py``.
 ``nn1(target, tmask, queries) -> (index [Q] int32, sqdist [Q] f32)``, index 0
 and ``+inf`` where no target is valid, the lowest index winning a tie. The
 JAX package sends only large 3-D searches on the TPU to its Pallas kernel and
-otherwise returns the matmul-identity distance ``q^2 + t^2 - 2 q.t``; the port
-follows the kernel's contract at every size: the CUDA kernel on CUDA tensors
-(3-D only, anything else raises) and its plain version on CPU tensors, both
-returning the exactly recomputed ``||q - t_idx||^2``.
+otherwise returns the matmul-identity distance ``q^2 + t^2 - 2 q.t``. The port
+follows the kernel's contract for 3-D searches at every size: the CUDA kernel
+on CUDA tensors and its plain version on CPU tensors, both returning the
+exactly recomputed ``||q - t_idx||^2``. Any other width (the 6-D xyz + Lab
+search of ``gicp6d``) never reaches a kernel in the JAX package either: it
+takes the chunked matmul-identity sweep here as there, on both devices.
 
 ``knn`` and ``radius`` keep the JAX package's distance, the matmul identity
 clamped at 0, computed for chunks of queries against all targets. Their
@@ -24,18 +26,50 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from pcl_tpu_torch.ops.nn1 import nn1
+from pcl_tpu_torch.ops import nn1 as _nn1_kernel
 
 __all__ = ["nn1", "knn", "radius", "smallest_k"]
 
 
 def _chunk_sqdist(q: torch.Tensor, t: torch.Tensor, tmask: torch.Tensor) -> torch.Tensor:
-    """``[C, 3] x [M, 3] -> [C, M]`` masked squared distances (invalid
+    """``[C, D] x [M, D] -> [C, M]`` masked squared distances (invalid
     targets ``+inf``)."""
     q2 = torch.sum(q * q, dim=-1)
     t2 = torch.sum(t * t, dim=-1)
     d = torch.clamp(q2[:, None] + t2[None, :] - 2.0 * (q @ t.T), min=0.0)
     return torch.where(tmask[None, :], d, math.inf)
+
+
+def nn1(
+    target: torch.Tensor,
+    tmask: torch.Tensor,
+    queries: torch.Tensor,
+    chunk: int = 2048,
+    tile: int = 8192,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN: ``(index [Q] int32, sqdist [Q] f32)``.
+
+    3-D searches go to kernel B1's wrapper (``ops.nn1.nn1``: exact
+    distances). Other widths sweep ``chunk`` queries against ``tile`` targets
+    at a time with the matmul-identity distance; a later tile wins only on
+    strictly less, so the lowest index wins a tie."""
+    if queries.shape[-1] == 3:
+        return _nn1_kernel.nn1(target, tmask, queries)
+    dev = queries.device
+    parts = []
+    for s in range(0, max(queries.shape[0], 1), chunk):
+        qc = queries[s:s + chunk]
+        best_d = torch.full((qc.shape[0],), math.inf, dtype=torch.float32, device=dev)
+        best_i = torch.zeros(qc.shape[0], dtype=torch.int64, device=dev)
+        for m in range(0, target.shape[0], tile):
+            d = _chunk_sqdist(qc, target[m:m + tile], tmask[m:m + tile])
+            dj, j = torch.min(d, dim=1)           # the first column at the minimum
+            better = dj < best_d
+            best_d = torch.where(better, dj, best_d)
+            best_i = torch.where(better, j + m, best_i)
+        parts.append((best_i.to(torch.int32), best_d))
+    idx, dd = (torch.cat(p) for p in zip(*parts))
+    return idx, dd
 
 
 def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

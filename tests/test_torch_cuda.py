@@ -15,7 +15,10 @@ from pcl_tpu_torch import features, filters
 from pcl_tpu_torch.core.cloud import make_cloud
 from pcl_tpu_torch.ops import nn1 as nn1_mod
 from pcl_tpu_torch.ops import segsum
-from pcl_tpu_torch.registration import icp as icp_mod
+from pcl_tpu_torch.registration.gicp import gicp
+from pcl_tpu_torch.registration.icp import icp
+from pcl_tpu_torch.registration.ndt import build_grid, ndt
+from pcl_tpu_torch.search import bruteforce
 
 
 @pytest.fixture
@@ -151,8 +154,8 @@ def test_icp_on_card_matches_cpu(cuda):
     a = 0.1
     R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]], np.float32)
     src = (tgt @ R.T + np.float32([0.05, -0.03, 0.02])).astype(np.float32)
-    on_card = icp_mod.icp(make_cloud(src), make_cloud(tgt), max_iterations=30)
-    on_cpu = icp_mod.icp(make_cloud(src, device="cpu"), make_cloud(tgt, device="cpu"),
+    on_card = icp(make_cloud(src), make_cloud(tgt), max_iterations=30)
+    on_cpu = icp(make_cloud(src, device="cpu"), make_cloud(tgt, device="cpu"),
                          max_iterations=30)
     assert int(on_card.iterations) == int(on_cpu.iterations)
     assert int(on_card.convergence_state) == int(on_cpu.convergence_state)
@@ -291,6 +294,84 @@ def test_voxel_front_end_on_card_matches_cpu(cuda):
     n_card = features.estimate_normals(on_card, **kw).attrs["normal"].cpu()[m]
     n_cpu = features.estimate_normals(on_cpu, **kw).attrs["normal"][m]
     assert float(((n_card * n_cpu).sum(1)).min()) >= 1 - 1e-4
+
+
+def _surface_pair(seed=9, n=6000):
+    """A curved sheet and two walls, and the same surface moved by a small
+    rigid motion (an exact copy: both aligners can recover it)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-3, 3, size=(n, 3)).astype(np.float32)
+    a[: n // 2, 2] = 0.2 * np.sin(a[: n // 2, 0]) + 0.1 * a[: n // 2, 1]
+    a[n // 2: 3 * n // 4, 0] = -3.0
+    a[3 * n // 4:, 1] = 3.0
+    ang = 0.03
+    R = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]],
+                 np.float32)
+    return (a @ R.T + np.float32([0.06, -0.04, 0.03])).astype(np.float32), a
+
+
+def test_bruteforce_nn1_dispatch_on_card(cuda):
+    """3-D searches launch kernel B1; a 6-D search takes the chunked matmul
+    sweep and launches nothing."""
+    rng = np.random.default_rng(10)
+    t6 = torch.from_numpy(rng.normal(size=(3000, 6)).astype(np.float32)).to(cuda)
+    q6 = torch.from_numpy(rng.normal(size=(500, 6)).astype(np.float32)).to(cuda)
+    tm = torch.ones(3000, dtype=torch.bool, device=cuda)
+    before = nn1_mod.nn1.launches
+    i3, d3 = bruteforce.nn1(t6[:, :3].contiguous(), tm, q6[:, :3].contiguous())
+    assert nn1_mod.nn1.launches == before + 1
+    i6, d6 = bruteforce.nn1(t6, tm, q6)
+    assert nn1_mod.nn1.launches == before + 1
+    c6 = bruteforce.nn1(t6.cpu(), tm.cpu(), q6.cpu())
+    assert torch.equal(i6.cpu(), c6[0])
+    np.testing.assert_allclose(d6.cpu().numpy(), c6[1].numpy(), atol=1e-4)
+
+
+def test_build_grid_on_card(cuda):
+    """One B2 launch per grid; two builds bitwise equal; the CPU run's voxels."""
+    _, tgt = _surface_pair(n=40000)
+    xyz = torch.from_numpy(tgt).to(cuda)
+    mask = torch.ones(len(tgt), dtype=torch.bool, device=cuda)
+    mask[::13] = False
+    before = segsum.segment_sum_sorted.launches
+    g1 = build_grid(xyz, mask, 1.0, table_size=1 << 14)
+    torch.cuda.synchronize()
+    assert segsum.segment_sum_sorted.launches == before + 1
+    g2 = build_grid(xyz, mask, 1.0, table_size=1 << 14)
+    for f in ("mean", "icov", "valid", "ckey1", "ckey2"):
+        assert torch.equal(getattr(g1, f), getattr(g2, f)), f
+    gc = build_grid(xyz.cpu(), mask.cpu(), 1.0, table_size=1 << 14)
+    assert torch.equal(g1.valid.cpu(), gc.valid) and int(gc.valid.sum()) > 50
+    assert torch.equal(g1.ckey1.cpu(), gc.ckey1) and torch.equal(g1.ckey2.cpu(), gc.ckey2)
+    # voxels of several hundred points: the kernel shares a long run among a
+    # block in another order than the CPU's row order
+    np.testing.assert_allclose(g1.mean.cpu().numpy(), gc.mean.numpy(), atol=1e-5)
+
+
+def test_gicp_and_ndt_on_card_match_cpu(cuda):
+    """Brute GICP launches B1 once per outer iteration; both aligners give
+    the CPU run's pose (1e-3 m, 1e-4 in rotation entries: neighbour ties may
+    move single covariances, ROADMAP C12, not the pose)."""
+    src, tgt = _surface_pair()
+    before = nn1_mod.nn1.launches
+    on_card = gicp(make_cloud(src), make_cloud(tgt), max_corr_dist=1.0)
+    torch.cuda.synchronize()
+    assert nn1_mod.nn1.launches - before == int(on_card.iterations) > 0
+    on_cpu = gicp(make_cloud(src, device="cpu"), make_cloud(tgt, device="cpu"),
+                  max_corr_dist=1.0)
+    assert bool(on_card.converged) and bool(on_cpu.converged)
+    np.testing.assert_allclose(on_card.transform.cpu().numpy()[:3, 3],
+                               on_cpu.transform.numpy()[:3, 3], atol=1e-3)
+    np.testing.assert_allclose(on_card.transform.cpu().numpy()[:3, :3],
+                               on_cpu.transform.numpy()[:3, :3], atol=1e-4)
+    kw = dict(resolution=1.0, table_size=1 << 14)
+    n_card = ndt(make_cloud(src), make_cloud(tgt), **kw)
+    n_cpu = ndt(make_cloud(src, device="cpu"), make_cloud(tgt, device="cpu"), **kw)
+    assert bool(n_card.converged) and bool(n_cpu.converged)
+    np.testing.assert_allclose(n_card.transform.cpu().numpy()[:3, 3],
+                               n_cpu.transform.numpy()[:3, 3], atol=1e-3)
+    np.testing.assert_allclose(n_card.transform.cpu().numpy()[:3, :3],
+                               n_cpu.transform.numpy()[:3, :3], atol=1e-4)
 
 
 def test_voxel_downsample_past_2_30_cells_on_card(cuda):

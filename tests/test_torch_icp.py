@@ -22,9 +22,9 @@ from pcl_tpu.ops import pallas_nn
 from pcl_tpu.search import bruteforce as jbf
 
 from pcl_tpu_torch.core.cloud import make_cloud as tmake
-from pcl_tpu_torch.registration import icp as ticp
-
 jicp = importlib.import_module("pcl_tpu.registration.icp")
+# in both packages the name "icp" of the registration package is the function
+ticp = importlib.import_module("pcl_tpu_torch.registration.icp")
 
 # transforms of the same float32 loop agree far below this; the bound only
 # has to absorb summation order (measured ~1e-7)

@@ -1,8 +1,10 @@
 """The port stands alone: no module of pcl_tpu_torch, and not chip_smoke.py,
-imports JAX or the JAX package; the constructors that pick a device ask for
-CUDA unless told otherwise; chip_smoke.py refuses to run without a card."""
+imports JAX or the JAX package, and every module imports on a machine without
+a card, nvcc or triton; the constructors that pick a device ask for CUDA
+unless told otherwise; chip_smoke.py refuses to run without a card."""
 
 import ast
+import importlib
 import os
 import shutil
 import subprocess
@@ -40,6 +42,24 @@ def _forbidden(name: str) -> bool:
 def test_no_jax_or_pcl_tpu_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "name", [".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+             for p in PORT_FILES[:-1]])
+def test_module_imports_without_a_card(name):
+    """Kernels are built and triton imported inside the call that launches
+    them, never when a module is imported."""
+    assert importlib.import_module(name).__name__ == name
+
+
+def test_new_modules_are_covered():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for must in ("io/pcd.py", "io/lzf.py", "io/ascii.py", "io/__init__.py", "ops/batch33.py",
+                 "features/shot.py", "registration/gicp.py", "registration/ndt.py",
+                 "utils/timing.py", "tools/odometry.py", "tools/voxel_grid.py",
+                 "tools/normal_estimation.py", "tools/icp.py", "tools/ndt3d.py"):
+        assert f"pcl_tpu_torch/{must}" in names
 
 
 def test_scan_sees_forbidden_imports(tmp_path):

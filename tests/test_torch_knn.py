@@ -251,6 +251,27 @@ def test_auto_cell_params_equal(rng, cell_size):
     assert got == pytest.approx(want, rel=1e-6)
 
 
+@pytest.mark.parametrize("table_size", [1 << 17, 64, 7])
+def test_auto_cell_params_cap_holds_on_the_hashed_table(rng, monkeypatch, table_size):
+    """The probed cap is measured on the table the search builds: in a small
+    table many cells share a bucket, and the cap still holds the fullest one
+    (the JAX package's probe counts cells and would report 48 throughout)."""
+    xyz = _surface(rng)
+    tc = Cloud(xyz=torch.from_numpy(xyz), mask=torch.ones(len(xyz), dtype=torch.bool))
+    sparse = tsearch.auto_cell_params(tc, 16)[1]
+    monkeypatch.setattr(tsearch, "_TABLE_SIZE", table_size)
+    cell, cap = tsearch.auto_cell_params(tc, 16, limit=1 << 14)
+    table = tcl.build(tc.xyz, tc.mask, np.float32(cell), table_size=table_size, cap=cap)
+    fullest = int(table.count[:-1].max())
+    assert cap // 2 < max(fullest, 24) <= cap
+    assert cap == tsearch.auto_cell_cap(tc, 16, cell, limit=1 << 14)
+    *_, trunc = tsearch.knn(tc, tc.xyz[::10], 16, backend="cell", cell_size=cell, cell_cap=cap,
+                            table_size=table_size, return_trunc=True)
+    assert not bool(trunc.any())
+    if table_size < 1 << 17:
+        assert cap > sparse
+
+
 def _organized(H=24, W=32, seed=0):
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     z = 2.0 + 0.05 * np.sin(yy * 0.3) + 0.04 * np.cos(xx * 0.2)

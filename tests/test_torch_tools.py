@@ -1,0 +1,200 @@
+"""The port's command-line tools on the CPU (``--device cpu``), on files the
+test writes, beside the JAX package's tools on the same files.
+
+Poses of ``tools.odometry`` agree within 1e-3 m and 1e-3 in rotation entries
+(both run float32 loops whose 1-NN distances differ in rounding, ROADMAP C1;
+NDT's runs may take other iterates to the same optimum); the downsampled and
+normal-estimated files hold the same points."""
+
+import numpy as np
+import pytest
+import torch
+
+from pcl_tpu.tools import icp as j_icp
+from pcl_tpu.tools import ndt3d as j_ndt3d
+from pcl_tpu.tools import normal_estimation as j_normals
+from pcl_tpu.tools import odometry as j_odometry
+from pcl_tpu.tools import voxel_grid as j_voxel_grid
+
+from pcl_tpu_torch import io as tio
+from pcl_tpu_torch.core.cloud import make_cloud, to_numpy
+from pcl_tpu_torch.registration import trajectory as ttraj
+from pcl_tpu_torch.tools import icp as t_icp
+from pcl_tpu_torch.tools import ndt3d as t_ndt3d
+from pcl_tpu_torch.tools import normal_estimation as t_normals
+from pcl_tpu_torch.tools import odometry as t_odometry
+from pcl_tpu_torch.tools import voxel_grid as t_voxel_grid
+
+CPU = ["--device", "cpu"]
+
+
+def _room(rng, n):
+    """Floor, two walls and a curved sheet: structure on every axis."""
+    n1 = n // 4
+    u = lambda lo, hi, m: rng.uniform(lo, hi, m)                # noqa: E731
+    floor = np.stack([u(-2, 2, n1), np.zeros(n1), u(2, 6, n1)], 1)
+    left = np.stack([np.full(n1, -2.0), u(0, 2, n1), u(2, 6, n1)], 1)
+    back = np.stack([u(-2, 2, n1), u(0, 2, n1), np.full(n1, 6.0)], 1)
+    t = rng.uniform(-1, 1, size=(n - 3 * n1, 2))
+    sheet = np.stack([t[:, 0], 0.8 + 0.3 * np.sin(2 * t[:, 0]), 4 + t[:, 1]], 1)
+    return np.concatenate([floor, left, back, sheet])
+
+
+@pytest.fixture(scope="module")
+def scans(tmp_path_factory):
+    """Three 1500-point scans of a room along a short walk, as PCD files, and
+    their golden poses in KITTI format."""
+    root = tmp_path_factory.mktemp("scans")
+    rng = np.random.default_rng(21)
+    pts, golden = ttraj.make_virtual_scan_sequence(
+        _room(rng, 6000), 3, np.random.default_rng(22), step_translation=0.05,
+        step_rotation=0.02, fov_tan=1.5, z_range=(0.3, 9.0), max_points=1500, noise=0.003)
+    files = []
+    for i, p in enumerate(pts):
+        files.append(str(root / f"scan{i}.pcd"))
+        tio.save(files[-1], make_cloud(p, device="cpu"), data="binary_compressed")
+    t_odometry._save_poses(str(root / "golden.txt"), golden)
+    return files, str(root / "golden.txt"), golden, root
+
+
+@pytest.mark.parametrize("method,gate", [("gicp", 0.5), ("icp", 0.5), ("gicp", float("inf"))])
+def test_probed_cells(scans, method, gate):
+    """The cell-list arguments the odometry tool gives its aligner: caps that
+    hold the fullest bucket of the tables the aligner builds, covariance cells
+    for GICP only, no correspondence cap without a gate."""
+    from pcl_tpu_torch import search
+    from pcl_tpu_torch.search import cell_list
+
+    s, t = (tio.load(f, device="cpu") for f in scans[0][:2])
+    kw = t_odometry.probed_cells(s, t, method, gate)
+    assert set(kw) == ({"cell_cap"} if np.isfinite(gate) else set()) | (
+        {"cov_cell_size", "cov_cell_cap"} if method == "gicp" else set())
+    if np.isfinite(gate):
+        table = cell_list.build(t.xyz, t.mask, np.float32(2.0 * gate), cap=kw["cell_cap"])
+        assert int(table.count[:-1].max()) <= kw["cell_cap"]
+    if method == "gicp":
+        assert kw["cov_cell_size"] == max(search.auto_cell_params(c, 20)[0] for c in (s, t))
+        for c in (s, t):
+            table = cell_list.build(c.xyz, c.mask, np.float32(kw["cov_cell_size"]),
+                                    cap=kw["cov_cell_cap"])
+            assert int(table.count[:-1].max()) <= kw["cov_cell_cap"]
+
+
+def _xyz(path):
+    return to_numpy(tio.load(path, device="cpu"))
+
+
+def test_voxel_grid_tool(scans, capsys, tmp_path):
+    files = scans[0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    assert t_voxel_grid.main([files[0], out_t, "-leaf", "0.2", *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_voxel_grid.main([files[0], out_j, "-leaf", "0.2"]) == 0
+    assert line_t == capsys.readouterr().out
+    assert line_t.startswith("[voxel_grid] 1500 -> ") and "(leaf 0.2)" in line_t
+    np.testing.assert_allclose(_xyz(out_t)[0], _xyz(out_j)[0], atol=1e-6)
+
+
+def test_normal_estimation_tool(scans, capsys, tmp_path):
+    files = scans[0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    args = ["-k", "12", "-vy", "1.0"]
+    assert t_normals.main([files[0], out_t, *args, *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_normals.main([files[0], out_j, *args]) == 0
+    assert line_t == capsys.readouterr().out == "[normal_estimation] 1500 points, k=12\n"
+    (xt, at), (xj, aj) = _xyz(out_t), _xyz(out_j)
+    np.testing.assert_array_equal(xt, xj)
+    # normals are signed towards the viewpoint; a few neighbourhoods are
+    # ill-conditioned (ROADMAP C9), hence the share
+    dots = (at["normal"] * aj["normal"]).sum(1)
+    assert (dots > 1 - 1e-4).mean() > 0.99
+    assert set(at) == {"normal", "curvature"}
+
+
+def test_icp_tool(scans, capsys, tmp_path):
+    files = scans[0]
+    out_t = str(tmp_path / "aligned.pcd")
+    args = [files[1], files[0], "--max-corr-dist", "0.5", "--iters", "30"]
+    rc_t = t_icp.main([*args, "-o", out_t, *CPU])
+    text_t = capsys.readouterr().out
+    rc_j = j_icp.main(args)
+    text_j = capsys.readouterr().out
+    assert rc_t == rc_j == 0
+    assert text_t.splitlines()[0] == text_j.splitlines()[0] == \
+        "[icp] source: 1500 pts  target: 1500 pts"
+    assert "[icp] converged=True iters=" in text_t and f"[icp] wrote {out_t}" in text_t
+
+    def matrix(text):
+        rows = [ln.strip(" []") for ln in text.splitlines() if ln.lstrip().startswith("[")
+                and "icp" not in ln]
+        return np.array([[float(v) for v in r.split()] for r in rows[:4]])
+
+    np.testing.assert_allclose(matrix(text_t), matrix(text_j), atol=1e-3)
+    assert _xyz(out_t)[0].shape == (1500, 3)
+
+
+def test_ndt3d_tool(scans, capsys, tmp_path):
+    files = scans[0]
+    out_t = str(tmp_path / "aligned.pcd")
+    args = [files[1], files[0], "-r", "1.0", "--iters", "30"]
+    assert t_ndt3d.main([*args, "-o", out_t, *CPU]) == 0
+    text_t = capsys.readouterr().out
+    assert j_ndt3d.main(args) == 0
+    text_j = capsys.readouterr().out
+    head_t, head_j = text_t.splitlines()[0], text_j.splitlines()[0]
+    assert head_t.startswith("[ndt3d] converged=True iters=")
+    score = lambda h: float(h.split("score=")[1])               # noqa: E731
+    assert score(head_t) == pytest.approx(score(head_j), rel=1e-3)
+    assert _xyz(out_t)[0].shape == (1500, 3)
+
+
+@pytest.mark.parametrize("method,extra", [
+    ("icp", ["--max-corr-dist", "0.5"]),
+    ("icp_p2plane", ["--max-corr-dist", "0.5"]),
+    ("gicp", ["--max-corr-dist", "0.5"]),
+    ("ndt", ["--resolution", "1.0"]),
+])
+def test_odometry_tool_matches_jax(scans, capsys, tmp_path, method, extra):
+    files, golden_file, golden, _ = scans
+    poses_t, poses_j = str(tmp_path / "t.txt"), str(tmp_path / "j.txt")
+    args = [*files, "--method", method, *extra, "--golden", golden_file]
+    assert t_odometry.main([*args, "--poses-out", poses_t, *CPU]) == 0
+    cap_t = capsys.readouterr()
+    assert j_odometry.main([*args, "--poses-out", poses_j]) == 0
+    cap_j = capsys.readouterr()
+    assert cap_t.err.splitlines()[0] == cap_j.err.splitlines()[0] == \
+        f"[odometry] 3 scans, method={method}"
+    assert cap_t.out.startswith("ATE rmse=") and "(unaligned)" in cap_t.out
+    got, want = t_odometry._load_poses(poses_t), j_odometry._load_poses(poses_j)
+    assert got.shape == (3, 4, 4)
+    np.testing.assert_allclose(got[:, :3, 3], want[:, :3, 3], atol=1e-3)
+    np.testing.assert_allclose(got[:, :3, :3], want[:, :3, :3], atol=1e-3)
+    ate = float(cap_t.out.split("rmse=")[2].split()[0])
+    print(f"{method}: unaligned ATE {ate} m")
+    assert ate < (0.05 if method == "ndt" else 0.02)
+
+
+def test_odometry_tool_default_method_and_length(scans, capsys):
+    files = scans[0]
+    assert t_odometry.main([*files[:2], "--max-corr-dist", "0.5", *CPU]) == 0
+    cap = capsys.readouterr()
+    assert "method=gicp" in cap.err and cap.out.startswith("trajectory length: ")
+    with pytest.raises(ValueError, match="12 columns"):
+        bad = scans[3] / "bad.txt"
+        np.savetxt(bad, np.zeros((3, 7)))
+        t_odometry._load_poses(str(bad))
+
+
+@pytest.mark.parametrize("tool", [t_voxel_grid, t_normals, t_icp, t_ndt3d, t_odometry],
+                         ids=lambda m: m.__name__.split(".")[-1])
+def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
+    """No silent move to the CPU: without a card and without --device cpu the
+    tool fails with the error the constructor raises."""
+    files = scans[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {t_odometry: files[:2]}.get(tool, [files[0], str(tmp_path / "o.pcd")])
+    if tool in (t_icp, t_ndt3d):
+        argv = files[:2]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main(argv)
