@@ -46,12 +46,23 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    infinite gate on 8,192 points of the noisy pair moved further (the brute
    branch: B1 once per iteration, several iterations), GICP and NDT on the
    card against the port's CPU run on a 20,000-point pair, and a device
-   breakdown of one GICP and one NDT pair.
+   breakdown of one GICP and one NDT pair;
+7. path E, feature-based global registration: two scans of the street 10 m
+   apart and turned 20 deg, written as binary PLY files and read back bit for
+   bit; per scan the ground plane by RANSAC (held against y = -1.7 m) and
+   removed, voxel_downsample at 0.3 m (B2), estimate_normals and FPFH; three
+   global aligners on the voxels of high curvature, prerejective RANSAC and
+   SAC-IA (each scoring all hypotheses in one B1 sweep) and a rejector chain
+   (feature 1-NN, one-to-one, sample consensus, closed form), each refined by
+   point-to-point ICP and held against the known motion; validate_euclidean
+   of the refined pose and of the identity; hash-grid FPFH against brute
+   FPFH; B1 timed at the sweep's shape; (a) again with the plain 1-NN; the
+   prerejective core on the card against the CPU run on the same samples.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
 0.08) m; path C's street and scans come from seed 0, the street with alleys
-from seed 7. Any failed check
+from seed 7, path E's two scans of path C's street from seed 5. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -132,6 +143,51 @@ BRUTE_GICP_POINTS = 8192
 BRUTE_GICP_DEG = 8.0
 BRUTE_GICP_T = (3.0, -2.0, 2.5)
 CARD_VS_CPU_POINTS = 20_000
+# path E: global registration of two scans of the street 10 m apart and
+# turned 20 deg (FCGF's KITTI protocol: pairs at least 10 m apart, 0.3 m
+# voxels); the aligners' thresholds follow Open3D's global-registration
+# recipe: FPFH over a 5-voxel radius, RANSAC inliers within 1.5 voxels
+E_SEED = 5
+E_POSE = (10.0, 20.0)              # m forward along z, deg about y (up)
+E_LEAF = 0.3
+E_GROUND_THRESHOLD = 0.1
+E_FPFH_RADIUS = 5 * E_LEAF
+E_INLIER = 1.5 * E_LEAF
+# keypoints: voxels of curvature above this; on a street of facades most
+# voxels are planar and share one FPFH (CPU rehearsal at full size: 1% of all
+# voxels' best feature match is right, 13% of these keypoints')
+E_KEYPOINT_CURVATURE = 0.08
+# hypotheses raised from the JAX defaults (2048, 512, 512) for ~10% right
+# picks: 3-point samples are right ~1e-3 of the time (PERF.md, path E)
+E_PRE_KW = dict(n_hypotheses=32768, inlier_threshold=E_INLIER)
+# SAC-IA's error truncated at the inlier distance and samples at least 1 m
+# apart (PCL's setMaxCorrespondenceDistance and setMinSampleDistance): with
+# the JAX default, a quarter of the bounding diagonal, the street's mirror
+# image (turned 180 deg and 57 m on) scored better than the motion
+E_IA_KW = dict(n_hypotheses=65536, error_threshold=E_INLIER, min_sample_distance=1.0)
+E_CHAIN_KW = dict(n_hypotheses=8192)
+# (a) again with the plain 1-NN, at the JAX default count of hypotheses
+E_PLAIN_HYPOTHESES = 2048
+E_ICP_KW = dict(max_corr_dist=1.0, max_iterations=60)
+E_VALIDATE_KW = dict(max_range=1.0, threshold=0.05)
+# limits, set from the first chip runs (PERF.md, path E): the ground plane's
+# normal and offset, ~5x and ~3x the 2.2e-5 rad and 1.1e-3 m measured (first
+# 1e-2 rad and 2e-2 m)
+E_PLANE_LIMITS = (1e-4, 3e-3)      # rad, m
+E_BASIN = (1.0, 0.1)               # m, rad: a start ICP's 1 m gate pulls in
+# what ICP from a global result leaves of the motion: m across the street and
+# up, m along it, rad. Point-to-point: 2x the 7.6 mm and 2.6e-4 rad and 1.7x
+# the 0.18 m along the street measured on the H100 (the facades hold it back
+# there, ROADMAP C22); point-to-plane: 3x the 3.4 mm, 9.6 mm, 2.4e-4 rad
+E_REFINED = (0.015, 0.3, 5e-4)
+E_REFINED_P2L = (0.01, 0.03, 5e-4)
+E_HASH_K = 16
+E_HASH_MIN_SHARE = 0.05
+# phase 1's case at path E's shape: 2048 hypotheses x 1024 subset points
+# against ~40k voxels
+E_QUERIES = 2048 * 1024
+E_TARGETS = 40_000
+E_PLAIN_ROWS = 1 << 18
 # phase 4's cloud past 2^30 bounding-box cells: 4000 clusters of 8 points
 FAR_LEAF = 0.1
 FAR_CAPACITY = 40_000
@@ -205,9 +261,12 @@ def phase1_nn1(nn1_mod, moved, tgt):
     rng = np.random.default_rng(1)
     dev = "cuda"
 
-    def case(name, t, m, q, slices=None):
+    def case(name, t, m, q, slices=None, plain_rows=None):
         t, m, q = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (t, m, q))
         ik, dk = nn1_mod.nn1(t, m, q, slices=slices)
+        if plain_rows is not None:
+            # the plain version on the first rows only (its time grows as Q M)
+            q, ik, dk = q[:plain_rows], ik[:plain_rows], dk[:plain_rows]
         ip, dp = nn1_mod.nn1_plain(t, m, q)
         torch.cuda.synchronize()
         check(torch.equal(torch.isfinite(dk), torch.isfinite(dp)), f"{name}: +inf differs")
@@ -289,6 +348,22 @@ def phase1_nn1(nn1_mod, moved, tgt):
             continue
         raise AssertionError(f"nn1 wrapper accepted {why}")
 
+    # path E's shape: the prerejective scoring sweep, 2048 x 1024 moved
+    # subset points against ~40k voxel centroids, fifty queries to a target;
+    # exact ties (a block of repeated targets, queries on targets) and 5% of
+    # the targets masked
+    tE = pts(E_TARGETS, -30.0, 30.0)
+    tE[E_TARGETS // 2:E_TARGETS // 2 + 500] = tE[:500]
+    mE = rng.uniform(size=E_TARGETS) > 0.05
+    qE = pts(E_QUERIES, -30.0, 30.0)
+    qE[::20] = tE[rng.integers(0, E_TARGETS, len(qE[::20]))]
+    errs.append(case(f"path E's shape {E_QUERIES} x {E_TARGETS} (plain on the first "
+                     f"{E_PLAIN_ROWS} queries)", tE, mE, qE, plain_rows=E_PLAIN_ROWS)[0])
+    tE, mE, qE = (torch.from_numpy(a).to(dev) for a in (tE, mE, qE))
+    msE = cuda_ms(lambda: nn1_mod.nn1(tE, mE, qE), reps=5)
+    plainE = cuda_ms(lambda: nn1_mod.nn1_plain(tE, mE, qE[:E_PLAIN_ROWS]), reps=1)
+    boundE, byE = nn1_bound_ms(E_QUERIES, E_TARGETS)
+
     ms = cuda_ms(lambda: nn1_mod.nn1(t, m, q), reps=20)
     plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t, m, q), reps=2)
     bound_s, bound_by = nn1_bound_ms(len(q), len(t))
@@ -302,10 +377,18 @@ def phase1_nn1(nn1_mod, moved, tgt):
     print(f"phase 1: nn1 kernel {ms2k * 1e3:.1f} us per 2048 x 120k sweep, bound "
           f"{bound2k * 1e6:.1f} us ({by2k}), (slices, slice length) "
           f"{nn1_mod.nn1_plan(len(q2k), len(t), slots)} [{card_line()}]", flush=True)
+    print(f"phase 1: nn1 kernel {msE:.3f} ms per {E_QUERIES} x {E_TARGETS} sweep (path E's "
+          f"shape), plain {plainE:.1f} ms for its first {E_PLAIN_ROWS} queries, bound "
+          f"{boundE * 1e3:.3f} ms ({byE}), (slices, slice length) "
+          f"{nn1_mod.nn1_plan(E_QUERIES, E_TARGETS, slots)} [{card_line()}]", flush=True)
     return {"name": "nn1", "route": "cuda", "source": "pcl_tpu_torch/csrc/nn1.cu",
             "replaces": "pcl_tpu/ops/pallas_nn.py:32", "launches": None,
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": None,
+            # the same numbers at path E's shape (plain on a slice of the queries)
+            "path_e_shape": {"q": E_QUERIES, "m": E_TARGETS, "ms": msE,
+                             "plain_ms": plainE, "plain_rows": E_PLAIN_ROWS,
+                             "bound_ms": boundE * 1e3, "bound_by": byE}}
 
 
 def timed(fn):
@@ -667,18 +750,21 @@ def phase4_segsum(segsum, scan0: np.ndarray):
     bound_s, bound_by = segsum_bound_ms(vals.shape[0], vals.shape[1], n_vox)
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            segsum.segment_sum_sorted(vals, seg)
-        torch.cuda.synchronize()
-    device_us = {}
-    for e in prof.key_averages():
-        name = re.search(r"segsum\w*_kernel", e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and name:
-            device_us[name.group(0)] = e.self_device_time_total / e.count
-    print(f"phase 4: segsum device time per launch (profiler): "
-          + (", ".join(f"{k} {v:.2f} us" for k, v in device_us.items()) or "not measured"),
-          flush=True)
+    for what, (pv, ps) in ((f"N={vals.shape[0]} W={vals.shape[1]}", (vals, seg)),
+                           (f"N={g_vals.shape[0]} W={g_vals.shape[1]} (the NDT grid)",
+                            (g_vals, g_seg))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                segsum.segment_sum_sorted(pv, ps)
+            torch.cuda.synchronize()
+        device_us = {}
+        for e in prof.key_averages():
+            name = re.search(r"segsum\w*_kernel", e.key)
+            if e.device_type == torch.autograd.DeviceType.CUDA and name:
+                device_us[name.group(0)] = e.self_device_time_total / e.count
+        print(f"phase 4: segsum device time per launch at {what} (profiler): "
+              + (", ".join(f"{k} {v:.2f} us" for k, v in device_us.items())
+                 or "not measured"), flush=True)
     noop = segsum.launch_floor()
     floor_ms = cuda_ms(noop, reps=500)
     torch.cuda.synchronize()
@@ -1153,6 +1239,335 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
             sum(t for _, t in ndt_results) * 1e3 / n_pairs, ndt_ate.rmse)
 
 
+def pose_matrix(forward: float, deg: float) -> np.ndarray:
+    """A scanner pose ``forward`` m along z and turned ``deg`` about y (up)."""
+    a = math.radians(deg)
+    P = np.eye(4)
+    P[:3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]]
+    P[2, 3] = forward
+    return P
+
+
+def scan_at(scene: np.ndarray, pose: np.ndarray, rng) -> np.ndarray:
+    """One scan of ``scene`` from a scanner at ``pose`` (scan frame to scene
+    frame), cut as ``make_virtual_scan_sequence`` cuts its scans: the view
+    frustum, ``SCAN_CAPACITY`` points drawn without replacement, range
+    noise."""
+    kw = SEQUENCE_KW
+    inv = np.linalg.inv(pose)
+    s = scene @ inv[:3, :3].T + inv[:3, 3]
+    z = s[:, 2]
+    fov = kw["fov_tan"]
+    vis = (z > kw["z_range"][0]) & (z < kw["z_range"][1]) \
+        & (np.abs(s[:, 0]) <= fov * z) & (np.abs(s[:, 1]) <= fov * z)
+    s = s[vis]
+    s = s[rng.choice(len(s), kw["max_points"], replace=False)]
+    return (s + rng.normal(scale=kw["noise"], size=s.shape)).astype(np.float32)
+
+
+def live_rows(cloud):
+    """The valid rows of a cloud, as a cloud of that many rows."""
+    return cloud.take(torch.nonzero(cloud.mask)[:, 0])
+
+
+def fpfh_k(cloud) -> int:
+    """k for FPFH from the cloud's density: the median number of points
+    within ``E_FPFH_RADIUS`` of 2,000 sampled points (host kd-tree), within
+    [16, 64]."""
+    from scipy.spatial import cKDTree
+
+    x = cloud.xyz[cloud.mask].cpu().numpy()
+    counts = cKDTree(x).query_ball_point(x[:: max(1, len(x) // 2000)], E_FPFH_RADIUS,
+                                         return_length=True)
+    return int(np.clip(np.median(counts), 16, 64))
+
+
+def global_front(cloud, k=None, log=None):
+    """Path E's chain for one scan: the ground plane by RANSAC, removed;
+    voxel_downsample (kernel B2) of the rest to its live voxels;
+    estimate_normals (host probe, cell list); estimate_fpfh (brute). Returns
+    (cloud with normals, descriptors, plane result, FPFH k, stage seconds)."""
+    from pcl_tpu_torch import features, filters, sac, segmentation
+
+    secs = {}
+    seg, secs["ground"] = timed(lambda: segmentation.sac_segmentation(
+        cloud, sac.PlaneModel(), E_GROUND_THRESHOLD))
+    rest = cloud.with_mask(~seg.inliers)
+    ds, secs["downsample"] = timed(lambda: live_rows(filters.voxel_downsample(rest, E_LEAF)))
+    nc, secs["normals"] = timed(lambda: features.estimate_normals(ds, k=NORMAL_K))
+    if k is None:
+        k, secs["k probe"] = timed(lambda: fpfh_k(nc))
+    f, secs["fpfh"] = timed(lambda: features.estimate_fpfh(nc, k=k))
+    if log:
+        print(f"{log}: ground inliers {int(seg.num_inliers)} of {int(cloud.mask.sum())}, "
+              f"{nc.capacity} voxels, FPFH k {k}; "
+              + ", ".join(f"{n} {t * 1e3:.3f} ms" for n, t in secs.items())
+              + f" [{card_line()}]", flush=True)
+    return nc, f, seg, k, secs
+
+
+def plane_error(coeffs) -> tuple:
+    """Angle (rad) between a plane's normal and the up axis, and its offset's
+    distance from the ground's (y = -1.7 m: n = (0, 1, 0), d = 1.7)."""
+    c = coeffs.double().cpu().numpy()
+    c = c * np.sign(c[1])
+    return math.atan2(math.hypot(c[0], c[2]), c[1]), abs(c[3] - 1.7)
+
+
+def chain_c(src, fs, tgt, ft):
+    """Aligner (c), the rejector chain: feature 1-NN correspondences (the
+    feature distance as sqdist), one-to-one, sample consensus over a rigid
+    model, then the closed form on the inliers."""
+    from pcl_tpu_torch.registration import Correspondences, estimate_svd, feature_knn, rejection
+
+    # reject_one_to_one keeps one segment per source row: a target index past
+    # the source's capacity would be dropped (ROADMAP C18), so the source is
+    # padded to the target's capacity first
+    if src.capacity < tgt.capacity:
+        fs = torch.cat([fs, fs.new_zeros(tgt.capacity - src.capacity, fs.shape[1])])
+        src = src.pad_to(tgt.capacity)
+    idx = feature_knn(fs, src.mask, ft, tgt.mask, 1)[:, 0]
+    d2 = torch.sum((fs - ft[idx.long()]) ** 2, dim=-1)
+    c = Correspondences(idx, d2, src.mask & tgt.mask[idx.long()])
+    n0 = int(c.valid.sum())
+    c = rejection.reject_one_to_one(c)
+    n1 = int(c.valid.sum())
+    c = rejection.reject_sample_consensus(c, src.xyz, tgt.xyz, E_INLIER, **E_CHAIN_KW)
+    n2 = int(c.valid.sum())
+    matched = tgt.xyz[torch.clamp(c.index.long(), 0, tgt.capacity - 1)]
+    T = estimate_svd(src.xyz, matched, c.valid.to(torch.float32))
+    fit = torch.linalg.vector_norm(src.xyz @ T[:3, :3].T + T[:3, 3] - matched, dim=-1)
+    return T, (n0, n1, n2), float(fit[c.valid].mean()) if n2 else float("inf")
+
+
+def phase7_path_e(segsum, nn1_mod, street, record_b1, record_b2):
+    """Path E: feature-based global registration of two scans of the street
+    10 m apart (PLY files, ground removal, FPFH, three global aligners, ICP,
+    validation)."""
+    from pcl_tpu_torch import features, io, search
+    from pcl_tpu_torch.core import geometry
+    from pcl_tpu_torch.core.cloud import Cloud, make_cloud
+    from pcl_tpu_torch.core.transforms import transform_points
+    from pcl_tpu_torch.registration import ia, icp, validate_euclidean
+    from pcl_tpu_torch.search import bruteforce, hashgrid
+    from pcl_tpu_torch.tools.odometry import probed_cells
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        """A check of this phase, raised with the others at its end."""
+        if not cond:
+            print(f"phase 7: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    rng = np.random.default_rng(E_SEED)
+    P = pose_matrix(*E_POSE)
+    scans = [scan_at(street, np.eye(4), rng), scan_at(street, P, rng)]
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, f"e{i}.ply") for i in range(2)]
+        _, wsecs = timed(lambda: [io.save(f, make_cloud(s)) for f, s in zip(files, scans)])
+        raw, rsecs = timed(lambda: [io.load(f) for f in files])
+        print(f"phase 7: two scans ({[len(s) for s in scans]} points, the second "
+              f"{E_POSE[0]} m on and {E_POSE[1]} deg about y) written as binary PLY in "
+              f"{wsecs * 1e3:.1f} ms ({sum(os.path.getsize(f) for f in files) / 1e6:.2f} MB), "
+              f"read back in {rsecs * 1e3:.1f} ms", flush=True)
+    for cloud, s in zip(raw, scans):
+        expect(bool(cloud.mask.all()) and torch.equal(cloud.xyz.cpu(), torch.from_numpy(s)),
+              "a scan read back from its PLY file differs from what was written")
+
+    # warm-up of the stages (libraries, allocator) on a quarter of scan 0
+    global_front(make_cloud(scans[0][::4]), k=16)
+
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    (tgt, ft, seg0, k, secs0) = global_front(raw[0], log="phase 7: scan 0 (target)")
+    (src, fs, seg1, _, secs1) = global_front(raw[1], k=k, log="phase 7: scan 1 (source)")
+    b2 = segsum.segment_sum_sorted.launches
+    for i, seg in enumerate((seg0, seg1)):
+        ang, off = plane_error(seg.coefficients)
+        print(f"phase 7: scan {i} ground plane: normal {ang:.3e} rad from up, offset "
+              f"{off:.3e} m from 1.7 m, valid {bool(seg.valid)}", flush=True)
+        expect(bool(seg.valid) and ang <= E_PLANE_LIMITS[0] and off <= E_PLANE_LIMITS[1],
+              f"scan {i}: ground plane {ang} rad, {off} m off y = -1.7 m")
+    expect(b2 == 2, f"path E launched B2 {b2} times for two downsamples")
+
+    def residual(T):
+        """Translation across the street and up, along it (m), rotation (rad)
+        left of the motion, in scan 0's frame (x across, y up, z along)."""
+        d = T.double().cpu().numpy()[:3, 3] - P[:3, 3]
+        return math.hypot(d[0], d[1]), abs(d[2]), pose_gap(T, torch.from_numpy(P))[1]
+
+    # keypoints: the aligners sample, match and score the voxels of high
+    # curvature (FPFH of a facade voxel is that of every other facade voxel)
+    skp, tkp = (c.with_mask(c.attrs["curvature"] > E_KEYPOINT_CURVATURE) for c in (src, tgt))
+    print(f"phase 7: keypoints (curvature > {E_KEYPOINT_CURVATURE}): source "
+          f"{int(skp.mask.sum())} of {src.capacity}, target {int(tkp.mask.sum())} of "
+          f"{tgt.capacity}", flush=True)
+    results = {}
+    b1 = {}
+    for name, run in (
+            ("a prerejective", lambda: ia.prerejective_ransac(skp, fs, tkp, ft, **E_PRE_KW)),
+            ("b sac_ia", lambda: ia.sac_ia(skp, fs, tkp, ft, **E_IA_KW)),
+            ("c rejector chain", lambda: chain_c(skp, fs, tkp, ft))):
+        before = nn1_mod.nn1.launches
+        out, gsecs = timed(run)
+        b1[name] = nn1_mod.nn1.launches - before
+        T = out[0] if name.startswith("c") else out.transform
+        ga, gz, gr = residual(T)
+        cells = probed_cells(src, tgt, "icp", E_ICP_KW["max_corr_dist"])
+        ref, isecs = timed(lambda: icp(src, tgt, init_transform=T, **E_ICP_KW, **cells))
+        ra, rz, rr = residual(ref.transform)
+        pl, lsecs = timed(lambda: icp(src, tgt, init_transform=T, variant="point_to_plane",
+                                      **E_ICP_KW, **cells))
+        la, lz, lr = residual(pl.transform)
+        results[name] = (T, ref, pl)
+        extra = (f"correspondences {out[1]} (feature 1-NN, one-to-one, consensus)"
+                 if name.startswith("c") else
+                 f"valid {bool(out.valid)}, score {float(out.error):.6f}")
+        print(f"phase 7: ({name}) {gsecs * 1e3:.3f} ms, {extra}, nn1 launches {b1[name]}; "
+              f"left of the motion: across and up {ga:.3e} m, along {gz:.3e} m, {gr:.3e} rad; "
+              f"ICP {isecs * 1e3:.3f} ms, {int(ref.iterations)} iterations, code "
+              f"{int(ref.convergence_state)}, truncated {bool(ref.truncated)}: left across and "
+              f"up {ra:.3e} m, along {rz:.3e} m, {rr:.3e} rad; point-to-plane ICP "
+              f"{lsecs * 1e3:.3f} ms, {int(pl.iterations)} iterations, code "
+              f"{int(pl.convergence_state)}: left {la:.3e} m, {lz:.3e} m, {lr:.3e} rad "
+              f"[{card_line()}]", flush=True)
+        # along the street ICP creeps (ROADMAP C22): it may end by its
+        # iteration limit; truncation would make its matches non-nearest
+        expect(not bool(ref.truncated) and not bool(pl.truncated), f"({name}) ICP truncated")
+        if name.startswith("c"):
+            # the chain scores feature matches only: on this street of
+            # identical cars and poles its largest consensus is an alias of
+            # the motion (PERF.md, path E), so it is held to what it computes,
+            # a rigid model that fits the consensus it kept
+            expect(out[1][2] >= 3 and out[2] <= E_INLIER,
+                   f"({name}) consensus of {out[1][2]} pairs fit to {out[2]} m")
+            print(f"phase 7: ({name}) consensus pairs fit the model to {out[2]:.3e} m on "
+                  f"average; the motion is {'' if math.hypot(ga, gz) <= E_BASIN[0] else 'not '}"
+                  f"in ICP's basin from it (printed, not checked)", flush=True)
+            continue
+        expect(bool(out.valid), f"({name}) found no valid hypothesis")
+        expect(math.hypot(ga, gz) <= E_BASIN[0] and gr <= E_BASIN[1],
+               f"({name}) left {ga} m, {gz} m, {gr} rad: outside ICP's basin")
+        expect(ra <= E_REFINED[0] and rz <= E_REFINED[1] and rr <= E_REFINED[2],
+               f"({name}) refined pose left {ra} m across and up, {rz} m along, {rr} rad")
+        expect(la <= E_REFINED_P2L[0] and lz <= E_REFINED_P2L[1] and lr <= E_REFINED_P2L[2],
+               f"({name}) point-to-plane pose left {la} m across and up, {lz} m along, {lr} rad")
+    expect(b1["a prerejective"] >= 1 and b1["b sac_ia"] >= 1,
+          f"the aligners' scoring did not launch B1: {b1}")
+    gaps = [pose_gap(results["a prerejective"][i].transform, results["b sac_ia"][i].transform)[0]
+            for i in (1, 2)]
+    print(f"phase 7: the refined poses of (a) and (b) agree to {gaps[0]:.3e} m (point-to-point), "
+          f"{gaps[1]:.3e} m (point-to-plane)", flush=True)
+
+    T_ref = results["a prerejective"][1].transform
+    for T, name, accept in ((T_ref, "refined", True), (torch.eye(4), "identity", False)):
+        v, vsecs = timed(lambda: validate_euclidean(src, tgt, T.to(src.xyz.device),
+                                                    **E_VALIDATE_KW))
+        print(f"phase 7: validate_euclidean of the {name} pose: score {float(v.score):.6f}, "
+              f"inliers {int(v.num_inliers)}, valid {bool(v.is_valid)}, {vsecs * 1e3:.3f} ms",
+              flush=True)
+        expect(bool(v.is_valid) == accept, f"validate_euclidean judged the {name} pose wrongly")
+    record_b1["launches_by_path"]["E"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"]["E"] = segsum.segment_sum_sorted.launches
+
+    # hash-grid FPFH against brute FPFH on scan 0, where no probed bucket is
+    # truncated and the k-th neighbour lies within the cell. At path E's k a
+    # cell holds more than the backend's 32 slots nearly everywhere, so the
+    # two backends are held to each other at k = E_HASH_K, cells from the
+    # host probe
+    kh = E_HASH_K
+    cell = search.auto_cell_params(tgt, kh)[0]
+    hf, hsecs = timed(lambda: features.estimate_fpfh(tgt, k=kh, backend="hashgrid",
+                                                     cell_size=cell))
+    bf = features.estimate_fpfh(tgt, k=kh)
+    grid = hashgrid.build(tgt.xyz, tgt.mask, cell)
+    hidx, _, _, trunc = hashgrid.knn(grid, tgt.xyz, kh)
+    bidx, bd2, _ = bruteforce.knn(tgt.xyz, tgt.mask, tgt.xyz, kh)
+    firm = (~trunc) & (bd2[:, -1] < cell * cell) & torch.all(
+        torch.sort(hidx, dim=1)[0] == torch.sort(bidx, dim=1)[0], dim=1)
+    firm = firm & torch.all(firm[bidx.long()], dim=1)      # FPFH mixes the neighbours' rows
+    # the same neighbours, but the brute distances are the matmul identity
+    # (rounding ~4 ulp of |q|^2 + |t|^2, ROADMAP C1) where the hash grid takes
+    # differences; FPFH weighs a neighbour by 1 / d^2, so a bin of a block of
+    # 100 may move by 200 times the worst relative error of a weight
+    sq = torch.sum(tgt.xyz * tgt.xyz, dim=1)
+    rel = 4 * 2.0 ** -24 * (sq[:, None] + sq[bidx.long()]) / torch.clamp(bd2, min=1e-12)
+    rel = torch.where(bd2 > 0, rel, 0.0).amax(dim=1)
+    tol = 1e-3 + 200.0 * torch.maximum(rel, rel[bidx.long()].amax(dim=1))
+    excess = ((hf - bf).abs().amax(dim=1) - tol)[firm]
+    herr = float((hf - bf)[firm].abs().max()) if bool(firm.any()) else float("inf")
+    tmax = float(tol[firm].max()) if bool(firm.any()) else float("nan")
+    print(f"phase 7: hash-grid FPFH at k {kh} (cell {cell:.4f} m, {hsecs * 1e3:.3f} ms): "
+          f"{int(trunc.sum())} of {tgt.capacity} points truncated, {int(firm.sum())} compared, "
+          f"max |hash - brute| {herr:.3e} (largest tolerance {tmax:.3e})", flush=True)
+    expect(int(firm.sum()) >= E_HASH_MIN_SHARE * tgt.capacity and bool((excess <= 0).all()),
+          "hash-grid FPFH differs from brute FPFH beyond the distances' rounding")
+
+    # B1 at this shape: the queries of (a), timed beside the bound
+    sidx, pick, sub = ia.draw_ia_samples(skp.mask, E_PRE_KW["n_hypotheses"], 3, 5, 1024)
+    cand = ia.feature_knn(fs, skp.mask, ft, tkp.mask, 5)
+    src_s, tgt_s = ia._matched_samples(skp, tkp, cand, sidx, pick)
+    Ts = geometry.umeyama(src_s, tgt_s, torch.ones(src_s.shape[:2], device=src_s.device))
+    q = transform_points(Ts, src.xyz[sub.long()]).reshape(-1, 3).contiguous()
+    ms = cuda_ms(lambda: nn1_mod.nn1(tkp.xyz, tkp.mask, q), reps=5)
+    bound_s, bound_by = nn1_bound_ms(len(q), tgt.capacity)
+    slots = nn1_mod.device_slots(torch.cuda.current_device())
+    print(f"phase 7: nn1 at path E's shape {len(q)} x {tgt.capacity}: {ms:.3f} ms, bound "
+          f"{bound_s * 1e3:.3f} ms ({bound_by}), (slices, slice length) "
+          f"{nn1_mod.nn1_plan(len(q), tgt.capacity, slots)} [{card_line()}]", flush=True)
+    device_breakdown("phase 7 (prerejective_ransac)",
+                     lambda: ia.prerejective_ransac(skp, fs, tkp, ft, **E_PRE_KW))
+    record_b1["path_e"] = {"q": len(q), "m": tgt.capacity, "ms": ms,
+                           "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+
+    # (a) with the plain 1-NN (at the JAX default count of hypotheses: the
+    # plain sweep's time grows as Q M): the same best hypothesis
+    few = dict(E_PRE_KW, n_hypotheses=E_PLAIN_HYPOTHESES)
+    with_kernel, ksecs = timed(lambda: ia.prerejective_ransac(skp, fs, tkp, ft, **few))
+    kernel_nn1 = bruteforce.nn1
+    bruteforce.nn1 = nn1_mod.nn1_plain
+    try:
+        plain, psecs = timed(lambda: ia.prerejective_ransac(skp, fs, tkp, ft, **few))
+    finally:
+        bruteforce.nn1 = kernel_nn1
+    pdiff = float((plain.transform - with_kernel.transform).abs().max())
+    print(f"phase 7: (a) with {E_PLAIN_HYPOTHESES} hypotheses: kernel {ksecs * 1e3:.1f} ms, "
+          f"plain nn1 {psecs * 1e3:.1f} ms, scores {float(with_kernel.error):.6f} / "
+          f"{float(plain.error):.6f}, max |T - T_kernel| {pdiff:.3e}", flush=True)
+    expect(pdiff <= 1e-6, f"(a) with plain nn1 chose another hypothesis ({pdiff})")
+
+    # the card against the port's CPU run on a 20k subset, the same samples
+    n = min(CARD_VS_CPU_POINTS, src.capacity, tgt.capacity)
+    s20, t20 = skp.take(torch.arange(n, device=src.xyz.device)), \
+        tkp.take(torch.arange(n, device=tgt.xyz.device))
+    fs20, ft20 = fs[:n], ft[:n]
+    g = torch.Generator().manual_seed(E_SEED)
+    draws = ia.draw_ia_samples(s20.mask.cpu(), 256, 3, 5, 128, g)
+    cand = ia.feature_knn(fs20, s20.mask, ft20, t20.mask, 5)
+    cand_cpu = ia.feature_knn(fs20.cpu(), s20.mask.cpu(), ft20.cpu(), t20.mask.cpu(), 5)
+    on_card = ia.prerejective_scores(s20, t20, cand, *(d.to(s20.xyz.device) for d in draws),
+                                     inlier_threshold=E_INLIER)
+    on_cpu = ia.prerejective_scores(*(Cloud(xyz=c_.xyz.cpu(), mask=c_.mask.cpu())
+                                      for c_ in (s20, t20)), cand.cpu(), *draws,
+                                    inlier_threshold=E_INLIER)
+    best_card, best_cpu = int(torch.argmax(on_card[1])), int(torch.argmax(on_cpu[1]))
+    tdiff = float((on_card[0][best_card].cpu() - on_cpu[0][best_cpu]).abs().max())
+    sc_card, sc_cpu = on_card[1].cpu(), on_cpu[1]
+    expect(torch.equal(torch.isfinite(sc_card), torch.isfinite(sc_cpu)),
+          "card and CPU prerejected other hypotheses")
+    fin = torch.isfinite(sc_cpu)
+    sdiff = float((sc_card[fin] - sc_cpu[fin]).abs().max()) if bool(fin.any()) else 0.0
+    print(f"phase 7: prerejective core on {n} x {n} points, card against CPU: feature kNN "
+          f"rows differing {int((cand.cpu() != cand_cpu).any(1).sum())}; best hypothesis "
+          f"{best_card} / {best_cpu}, max |T - T_cpu| {tdiff:.3e}, max |score diff| "
+          f"{sdiff:.3e}", flush=True)
+    expect(best_card == best_cpu and tdiff <= 1e-4,
+          "the prerejective core on the card disagrees with the CPU run")
+    check(not failed, "path E: " + "; ".join(failed))
+    return {k_: secs0[k_] + secs1[k_] for k_ in secs0 if k_ in secs1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1176,8 +1591,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"set-up: {lib.name}: {line.strip()}", flush=True)
     t0 = time.perf_counter()
+    street = make_street()
     scans, golden = trajectory.make_virtual_scan_sequence(
-        make_street(), N_SCANS, np.random.default_rng(0), **SEQUENCE_KW)
+        street, N_SCANS, np.random.default_rng(0), **SEQUENCE_KW)
     print(f"set-up: street of {SCENE_POINTS} points, {N_SCANS} scans of "
           f"{[len(s) for s in scans]} points in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1208,8 +1624,11 @@ def main() -> int:
     ms_gicp, ate_gicp, ms_ndt, ate_ndt = phase6_path_d(segsum, nn1_mod, scans, golden, alley,
                                                        src, tgt, M, record, record_b2)
     lap("phase 6")
+    stages_e = phase7_path_e(segsum, nn1_mod, street, record, record_b2)
+    lap("phase 7")
     for rec in (record, record_b2):
-        # launches on the main paths: A (brute ICP), C (front end), D (GICP, NDT)
+        # launches on the main paths: A (brute ICP), C (front end), D (GICP,
+        # NDT), E (global registration)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -1219,7 +1638,9 @@ def main() -> int:
           f"ms/sweep (bound {record['bound_ms']:.3f} ms, plain {record['plain_ms']:.1f} ms); "
           f"segsum {record_b2['ms'] * 1e3:.1f} us (bound {record_b2['bound_ms'] * 1e3:.2f} us, "
           f"plain {record_b2['plain_ms'] * 1e3:.1f} us, library "
-          f"{record_b2['library_ms'] * 1e3:.1f} us) [{card}]", flush=True)
+          f"{record_b2['library_ms'] * 1e3:.1f} us); path E stages (two scans) "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages_e.items())
+          + f" [{card}]", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

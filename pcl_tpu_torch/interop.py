@@ -2,7 +2,7 @@
 
 Turns arrays that the JAX package produced, already converted to numpy by
 the caller (``np.asarray(jax_array)``), into the port's objects, so that a
-cloud, a cell table or an NDT grid built there can be used here. This module reads only
+cloud, a cell table, a hash grid or an NDT grid built there can be used here. This module reads only
 numpy arrays and plain values; it imports nothing of the JAX package.
 """
 
@@ -16,6 +16,7 @@ import torch
 from pcl_tpu_torch.core.cloud import Cloud, _device
 from pcl_tpu_torch.registration.ndt import NDTGrid
 from pcl_tpu_torch.search.cell_list import CellTable
+from pcl_tpu_torch.search.hashgrid import HashGrid
 
 
 def cloud_from_arrays(
@@ -93,4 +94,29 @@ def ndt_grid_from_arrays(
         valid=torch.tensor(np.asarray(valid, bool), device=dev),
         ckey1=torch.tensor(np.asarray(ckey1, np.int32), device=dev),
         ckey2=torch.tensor(np.asarray(ckey2, np.int32), device=dev),
+    )
+
+
+def hashgrid_from_arrays(
+    cell_size,
+    table_size: int,
+    sorted_xyz: np.ndarray,
+    sorted_idx: np.ndarray,
+    sorted_mask: np.ndarray,
+    bucket_start: np.ndarray,
+    device=None,
+) -> HashGrid:
+    """A HashGrid holding a CSR index built elsewhere, queried as it is."""
+    dev = _device(device)
+    bucket_start = np.asarray(bucket_start, np.int32)
+    if bucket_start.shape != (table_size + 2,):
+        raise ValueError(f"hash grid bucket_start {bucket_start.shape} does not match "
+                         f"table_size={table_size}")
+    return HashGrid(
+        cell_size=torch.tensor(np.float32(cell_size), device=dev),
+        table_size=int(table_size),
+        sorted_xyz=torch.tensor(np.asarray(sorted_xyz, np.float32), device=dev),
+        sorted_idx=torch.tensor(np.asarray(sorted_idx, np.int32), device=dev),
+        sorted_mask=torch.tensor(np.asarray(sorted_mask, bool), device=dev),
+        bucket_start=torch.tensor(bucket_start, device=dev),
     )

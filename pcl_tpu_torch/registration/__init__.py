@@ -2,6 +2,7 @@
 
 from pcl_tpu_torch.registration.correspondence import (
     Correspondences,
+    correspondence_normal_shooting,
     determine_correspondences,
     determine_reciprocal_correspondences,
 )
@@ -12,6 +13,7 @@ from pcl_tpu_torch.registration.estimation import (
     point_to_plane_system,
 )
 from pcl_tpu_torch.registration.gicp import GICPResult, gicp, regularized_covariances
+from pcl_tpu_torch.registration.ia import IAResult, feature_knn, prerejective_ransac, sac_ia
 from pcl_tpu_torch.registration.icp import ICPResult, align, fitness_score, icp
 from pcl_tpu_torch.registration.ndt import NDTResult, build_grid, ndt
 from pcl_tpu_torch.registration.trajectory import (
@@ -23,11 +25,14 @@ from pcl_tpu_torch.registration.trajectory import (
     trajectory_rpe,
     umeyama_se3,
 )
+from pcl_tpu_torch.registration.validation import ValidationResult, validate_euclidean
+from pcl_tpu_torch.registration import rejection
 
 __all__ = [
     "Correspondences",
     "determine_correspondences",
     "determine_reciprocal_correspondences",
+    "correspondence_normal_shooting",
     "estimate_svd",
     "estimate_point_to_plane",
     "estimate_symmetric_point_to_plane",
@@ -37,4 +42,6 @@ __all__ = [
     "GICPResult", "gicp", "regularized_covariances",
     "ATEResult", "RPEResult", "trajectory_ate", "trajectory_rpe",
     "odometry_sequence", "make_drift_sequence", "umeyama_se3",
+    "IAResult", "sac_ia", "prerejective_ransac", "feature_knn",
+    "ValidationResult", "validate_euclidean", "rejection",
 ]

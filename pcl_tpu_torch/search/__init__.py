@@ -5,10 +5,11 @@ Counterpart of ``pcl_tpu/search/__init__.py``. Backends:
 - ``bruteforce``: exact; small clouds, and 1-NN through kernel B1;
 - ``cell``: the cell list (``search/cell_list.py``), exact within its cell
   horizon unless a bucket overflows ``cell_cap`` (flagged as truncated).
-  ``auto`` picks it above ``_AUTO_PAIRS`` candidate pairs.
+  ``auto`` picks it above ``_AUTO_PAIRS`` candidate pairs;
+- ``hashgrid``: the CSR voxel hash (``search/hashgrid.py``), only when asked
+  for.
 
-The JAX package's ``hashgrid`` backend is not ported yet: asking for it
-raises. All results are fixed-shape ``(indices, sqdists, valid[, count])``.
+All results are fixed-shape ``(indices, sqdists, valid[, count])``.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ import numpy as np
 import torch
 
 from pcl_tpu_torch.core.cloud import Cloud
-from pcl_tpu_torch.search import bruteforce, cell_list, organized
+from pcl_tpu_torch.search import bruteforce, cell_list, hashgrid, organized
+from pcl_tpu_torch.search.hashgrid import HashGrid, build as build_hashgrid
 
-__all__ = ["bruteforce", "cell_list", "organized", "knn", "radius_search", "nn1",
-           "knn_density_radius", "auto_cell_params", "auto_cell_cap"]
+__all__ = ["bruteforce", "cell_list", "hashgrid", "HashGrid", "build_hashgrid", "organized",
+           "knn", "radius_search", "nn1", "knn_density_radius", "auto_cell_params",
+           "auto_cell_cap"]
 
 # above this many candidate pairs (target x query capacity) the brute sweep
 # gives way to the cell list; the one threshold of the search dispatch and of
@@ -31,9 +34,6 @@ _AUTO_PAIRS = 1e9
 # rows of the hashed cell table that every search here builds by default, and
 # on which the density probe therefore measures its cap
 _TABLE_SIZE = 1 << 17
-
-_HASHGRID = ("backend='hashgrid' is not ported yet (ROADMAP.md, queue A, item "
-             "12b: search/hashgrid.py); use 'cell' or 'bruteforce'")
 
 
 def knn_density_radius(xyz: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -123,17 +123,21 @@ def knn(target, queries, k: int, backend: str = "auto",
     """k nearest neighbours of each query: ``(idx, sqdist, valid)``, and
     ``truncated [Q]`` with ``return_trunc`` (always False on the brute
     backend). The cell backend is exact for neighbours within its horizon
-    (``cell_size``, or the density radius) when no bucket truncates."""
+    (``cell_size``, or the density radius) when no bucket truncates; the
+    hash grid (``cell_size`` required, its own 2^16-bucket table; ``kw``
+    may give ``bucket_cap``) likewise."""
     xyz, mask = _unpack(target)
     queries = _queries(queries)
     big = xyz.shape[0] * queries.shape[0] > _AUTO_PAIRS
-    if backend == "hashgrid":
-        raise ValueError(_HASHGRID)
     if backend == "cell" or (backend == "auto" and big):
         r = knn_density_radius(xyz, mask, k) if cell_size is None \
             else np.float32(cell_size)
         table = cell_list.build(xyz, mask, r, table_size=table_size, cap=cell_cap)
         idx, d, v, trunc = cell_list.knn_radius(table, queries, k)
+    elif backend == "hashgrid":
+        if cell_size is None:
+            raise ValueError("hashgrid backend requires cell_size")
+        idx, d, v, trunc = hashgrid.knn(build_hashgrid(xyz, mask, cell_size), queries, k, **kw)
     else:
         idx, d, v = bruteforce.knn(xyz, mask, queries, k, **kw)
         trunc = torch.zeros(queries.shape[0], dtype=torch.bool, device=queries.device)
@@ -144,16 +148,18 @@ def radius_search(target, queries, r: float, cap: int, backend: str = "auto",
                   cell_cap: int = 32, table_size: int = _TABLE_SIZE,
                   return_trunc: bool = False, **kw):
     """Neighbours within ``r`` (up to the ``cap`` nearest): ``(idx, sqdist,
-    valid, count)``, and ``truncated [Q]`` with ``return_trunc``."""
+    valid, count)``, and ``truncated [Q]`` with ``return_trunc``. The hash
+    grid's cells are ``r`` wide."""
     xyz, mask = _unpack(target)
     queries = _queries(queries)
     big = xyz.shape[0] * queries.shape[0] > _AUTO_PAIRS
-    if backend == "hashgrid":
-        raise ValueError(_HASHGRID)
     if backend == "cell" or (backend == "auto" and big):
         table = cell_list.build(xyz, mask, np.float32(r), table_size=table_size,
                                 cap=cell_cap)
         idx, d, v, count, trunc = cell_list.radius_search(table, queries, r, cap_out=cap)
+    elif backend == "hashgrid":
+        idx, d, v, count, trunc = hashgrid.radius(build_hashgrid(xyz, mask, r), queries, r,
+                                                  cap, **kw)
     else:
         idx, d, v, count = bruteforce.radius(xyz, mask, queries, r, cap, **kw)
         trunc = torch.zeros(queries.shape[0], dtype=torch.bool, device=queries.device)

@@ -13,9 +13,10 @@ search of ``gicp6d``) never reaches a kernel in the JAX package either: it
 takes the chunked matmul-identity sweep here as there, on both devices.
 
 ``knn`` and ``radius`` keep the JAX package's distance, the matmul identity
-clamped at 0, computed for chunks of queries against all targets. Their
-lists are ascending, and equal distances keep the lower index first (a stable
-sort, as ``lax.top_k`` orders ties). Invalid slots have index 0 and ``+inf``.
+clamped at 0, computed for chunks of queries against all targets; in 3-D
+bit for bit (``_chunk_sqdist``, ROADMAP F2). Their lists are ascending, and
+equal distances keep the lower index first (a stable sort, as ``lax.top_k``
+orders ties). Invalid slots have index 0 and ``+inf``.
 """
 
 from __future__ import annotations
@@ -31,12 +32,32 @@ from pcl_tpu_torch.ops import nn1 as _nn1_kernel
 __all__ = ["nn1", "knn", "radius", "smallest_k"]
 
 
+def _fma_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_k a[..., k] * b[..., k]`` (broadcast) as the JAX package's
+    compiled CPU code forms it: ``a_0 b_0``, then one fused multiply-add per
+    further coordinate in ascending order, each emulated in float64 and
+    rounded once to float32 (as ``ops.nn1`` does)."""
+    out = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = _nn1_kernel._fma32(a[..., k], b[..., k], out)
+    return out
+
+
 def _chunk_sqdist(q: torch.Tensor, t: torch.Tensor, tmask: torch.Tensor) -> torch.Tensor:
     """``[C, D] x [M, D] -> [C, M]`` masked squared distances (invalid
-    targets ``+inf``)."""
-    q2 = torch.sum(q * q, dim=-1)
-    t2 = torch.sum(t * t, dim=-1)
-    d = torch.clamp(q2[:, None] + t2[None, :] - 2.0 * (q @ t.T), min=0.0)
+    targets ``+inf``): the matmul identity ``(q^2 + t^2) - 2 q.t`` clamped at
+    0. In 3-D the norms and the dot products are fused multiply-add chains,
+    bit for bit as the JAX package's compiled CPU path computes them, so a
+    point lies exactly 0 from itself; a BLAS product next to plainly summed
+    norms leaves some points ~1e-6 from themselves, which FPFH's ``1 / d^2``
+    weight turns into its largest term. Other widths take a matrix product."""
+    if q.shape[1] == 3:
+        dot = _fma_sum(q[:, None, :], t[None, :, :])
+        q2, t2 = _fma_sum(q, q), _fma_sum(t, t)
+    else:
+        dot = q @ t.T
+        q2, t2 = torch.sum(q * q, dim=-1), torch.sum(t * t, dim=-1)
+    d = torch.clamp((q2[:, None] + t2[None, :]) - 2.0 * dot, min=0.0)
     return torch.where(tmask[None, :], d, math.inf)
 
 

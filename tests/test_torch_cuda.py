@@ -396,3 +396,76 @@ def test_voxel_downsample_past_2_30_cells_on_card(cuda):
     np.testing.assert_allclose(on_card.attrs["intensity"].cpu().numpy(),
                                on_cpu.attrs["intensity"].numpy(), atol=1e-6)
 
+
+
+def test_hashgrid_on_card_matches_cpu(cuda):
+    """The hash grid's build, kNN and radius search on the card: the CPU
+    run's indices, validity, counts and truncation flags (both sum the same
+    three squared differences; distances to 1e-6 relative)."""
+    from pcl_tpu_torch.search import hashgrid
+
+    rng = np.random.default_rng(11)
+    xyz = rng.uniform(-3, 3, size=(20000, 3)).astype(np.float32)
+    xyz[10000:10500] = xyz[:500]                     # exact ties
+    mask = rng.random(20000) < 0.9
+    q = torch.from_numpy(xyz[::7].copy())
+    for table_size, cap in ((1 << 16, 32), (256, 8)):
+        g = hashgrid.build(torch.from_numpy(xyz).to(cuda), torch.from_numpy(mask).to(cuda), 0.3,
+                           table_size=table_size)
+        gc = hashgrid.build(torch.from_numpy(xyz), torch.from_numpy(mask), 0.3,
+                            table_size=table_size)
+        assert torch.equal(g.sorted_idx.cpu(), gc.sorted_idx)
+        assert torch.equal(g.bucket_start.cpu(), gc.bucket_start)
+        for got, want in ((hashgrid.knn(g, q.to(cuda), 12, bucket_cap=cap),
+                           hashgrid.knn(gc, q, 12, bucket_cap=cap)),
+                          (hashgrid.radius(g, q.to(cuda), 0.3, 16, bucket_cap=cap),
+                           hashgrid.radius(gc, q, 0.3, 16, bucket_cap=cap))):
+            got = [x.cpu() for x in got]
+            assert torch.equal(got[2], want[2])
+            assert torch.equal(got[0][got[2]], want[0][want[2]])
+            np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=1e-6)
+            for a, b in zip(got[3:], want[3:]):
+                assert torch.equal(a, b)
+
+
+def test_nn1_kernel_at_path_e_shape(cuda):
+    """Queries outnumbering targets fifty to one (2048 x 1024 moved subset
+    points against 40,000 voxels), exact ties and masked targets: the kernel
+    equals its plain version on a slice of the queries."""
+    rng = np.random.default_rng(12)
+    t = rng.uniform(-30, 30, size=(40000, 3)).astype(np.float32)
+    t[20000:20500] = t[:500]
+    m = rng.random(40000) > 0.05
+    q = rng.uniform(-30, 30, size=(2048 * 1024, 3)).astype(np.float32)
+    q[::20] = t[rng.integers(0, 40000, len(q[::20]))]
+    t, m, q = (torch.from_numpy(a).to(cuda) for a in (t, m, q))
+    ik, dk = nn1_mod.nn1(t, m, q)
+    ip, dp = nn1_mod.nn1_plain(t, m, q[: 1 << 17])
+    assert torch.equal(ik[: 1 << 17], ip) and torch.equal(dk[: 1 << 17], dp)
+
+
+def test_ia_core_on_card_matches_cpu(cuda):
+    """The prerejective and SAC-IA cores on the card (B1 scores every
+    hypothesis) against the CPU run on the same samples and candidates: the
+    same best hypothesis, transforms to 1e-4."""
+    from pcl_tpu_torch.core.cloud import Cloud
+    from pcl_tpu_torch.registration import ia
+
+    src, tgt = _surface_pair(n=5000)
+    rng = np.random.default_rng(13)
+    fs = rng.random((5000, 33)).astype(np.float32)
+    ft = fs + rng.normal(scale=0.01, size=fs.shape).astype(np.float32)
+    clouds = [make_cloud(a) for a in (src, tgt)]
+    clouds_cpu = [Cloud(xyz=c.xyz.cpu(), mask=c.mask.cpu()) for c in clouds]
+    cand = ia.feature_knn(torch.from_numpy(fs).to(cuda), clouds[0].mask,
+                          torch.from_numpy(ft).to(cuda), clouds[1].mask, 5)
+    draws = ia.draw_ia_samples(clouds_cpu[0].mask, 512, 3, 5, 256,
+                               torch.Generator().manual_seed(1))
+    before = nn1_mod.nn1.launches
+    for core in (ia.prerejective_core, ia.sac_ia_core):
+        on_card = core(*clouds, cand, *(d.to(cuda) for d in draws))
+        on_cpu = core(*clouds_cpu, cand.cpu(), *draws)
+        np.testing.assert_allclose(on_card.transform.cpu().numpy(), on_cpu.transform.numpy(),
+                                   atol=1e-4)
+        assert abs(float(on_card.error) - float(on_cpu.error)) <= 1e-5
+    assert nn1_mod.nn1.launches == before + 2

@@ -58,7 +58,13 @@ def test_new_modules_are_covered():
     for must in ("io/pcd.py", "io/lzf.py", "io/ascii.py", "io/__init__.py", "ops/batch33.py",
                  "features/shot.py", "registration/gicp.py", "registration/ndt.py",
                  "utils/timing.py", "tools/odometry.py", "tools/voxel_grid.py",
-                 "tools/normal_estimation.py", "tools/icp.py", "tools/ndt3d.py"):
+                 "tools/normal_estimation.py", "tools/icp.py", "tools/ndt3d.py",
+                 "search/hashgrid.py", "features/fpfh.py", "sac/__init__.py", "sac/models.py",
+                 "sac/ransac.py", "segmentation/__init__.py",
+                 "segmentation/sac_segmentation.py", "registration/rejection.py",
+                 "registration/ia.py", "registration/validation.py", "io/ply.py",
+                 "tools/fpfh_estimation.py", "tools/sac_segmentation.py",
+                 "tools/sac_segmentation_plane.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -74,7 +80,9 @@ def test_scan_sees_forbidden_imports(tmp_path):
     lambda: tcloud.make_cloud(np.zeros((4, 3), np.float32)),
     lambda: tcloud.from_numpy(np.zeros((4, 3), np.float32)),
     lambda: interop.cloud_from_arrays(np.zeros((4, 3), np.float32), np.ones(4, bool)),
-], ids=["make_cloud", "from_numpy", "cloud_from_arrays"])
+    lambda: interop.hashgrid_from_arrays(0.5, 2, np.zeros((1, 3)), np.zeros(1), np.ones(1),
+                                         np.zeros(4)),
+], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays"])
 def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -215,11 +215,24 @@ def test_search_radius_and_nn1(rng):
 
 
 def test_hashgrid_backend_not_ported(rng):
-    _, tc = _clouds(rng, n=50)
-    for call in (lambda: tsearch.knn(tc, tc.xyz, 4, backend="hashgrid", cell_size=0.2),
-                 lambda: tsearch.radius_search(tc, tc.xyz, 0.2, 4, backend="hashgrid")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            call()
+    """The name is older than the port of the hash grid: ``backend="hashgrid"``
+    now dispatches to it as the JAX package does (kNN needs ``cell_size``;
+    radius search takes cells ``r`` wide). Distances are differences on both
+    sides: 1e-6 relative."""
+    jc, tc = _clouds(rng, n=400)
+    q = _points(rng, 120)
+    want = jsearch.knn(jc, jnp.asarray(q), 6, backend="hashgrid", cell_size=0.3,
+                       return_trunc=True, bucket_cap=16)
+    got = tsearch.knn(tc, torch.from_numpy(q), 6, backend="hashgrid", cell_size=0.3,
+                      return_trunc=True, bucket_cap=16)
+    _same_lists(got, want, atol=1e-7, rtol=1e-6)
+    want = jsearch.radius_search(jc, jnp.asarray(q), 0.3, 8, backend="hashgrid",
+                                 return_trunc=True)
+    got = tsearch.radius_search(tc, torch.from_numpy(q), 0.3, 8, backend="hashgrid",
+                                return_trunc=True)
+    _same_lists(got, want, atol=1e-7, rtol=1e-6)
+    with pytest.raises(ValueError, match="requires cell_size"):
+        tsearch.knn(tc, tc.xyz, 4, backend="hashgrid")
 
 
 def _surface(rng, n=3000):

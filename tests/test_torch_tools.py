@@ -10,19 +10,25 @@ import numpy as np
 import pytest
 import torch
 
+from pcl_tpu.tools import fpfh_estimation as j_fpfh
 from pcl_tpu.tools import icp as j_icp
 from pcl_tpu.tools import ndt3d as j_ndt3d
 from pcl_tpu.tools import normal_estimation as j_normals
 from pcl_tpu.tools import odometry as j_odometry
+from pcl_tpu.tools import sac_segmentation as j_sacseg
+from pcl_tpu.tools import sac_segmentation_plane as j_sacplane
 from pcl_tpu.tools import voxel_grid as j_voxel_grid
 
 from pcl_tpu_torch import io as tio
 from pcl_tpu_torch.core.cloud import make_cloud, to_numpy
 from pcl_tpu_torch.registration import trajectory as ttraj
+from pcl_tpu_torch.tools import fpfh_estimation as t_fpfh
 from pcl_tpu_torch.tools import icp as t_icp
 from pcl_tpu_torch.tools import ndt3d as t_ndt3d
 from pcl_tpu_torch.tools import normal_estimation as t_normals
 from pcl_tpu_torch.tools import odometry as t_odometry
+from pcl_tpu_torch.tools import sac_segmentation as t_sacseg
+from pcl_tpu_torch.tools import sac_segmentation_plane as t_sacplane
 from pcl_tpu_torch.tools import voxel_grid as t_voxel_grid
 
 CPU = ["--device", "cpu"]
@@ -186,7 +192,74 @@ def test_odometry_tool_default_method_and_length(scans, capsys):
         t_odometry._load_poses(str(bad))
 
 
-@pytest.mark.parametrize("tool", [t_voxel_grid, t_normals, t_icp, t_ndt3d, t_odometry],
+def test_fpfh_estimation_tool(scans, capsys, tmp_path):
+    """Normals and FPFH of a scan: both tools print the same line and write
+    the same points and, to 1e-5, the same normals (ROADMAP C9). FPFH turns
+    a normal's 1e-3 rad into flipped bins (ROADMAP C19), so the descriptors
+    are compared from the same normals: the port's FPFH of the JAX file's
+    normals matches the JAX file's descriptors to 1e-3 on 95% of the points,
+    and the port's file holds the FPFH of its own normals."""
+    from pcl_tpu_torch.features import estimate_fpfh
+
+    files = scans[0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    assert t_fpfh.main([files[0], out_t, "-k", "16", "-nk", "12", *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_fpfh.main([files[0], out_j, "-k", "16", "-nk", "12"]) == 0
+    assert line_t == capsys.readouterr().out == "[fpfh_estimation] 1500 descriptors (33 bins)\n"
+    (xt, at), (xj, aj) = _xyz(out_t), _xyz(out_j)
+    np.testing.assert_array_equal(xt, xj)
+    assert at["fpfh"].shape == (1500, 33)
+    assert ((at["normal"] * aj["normal"]).sum(1) >= 1 - 1e-5).all()
+    own = estimate_fpfh(make_cloud(xt, device="cpu").with_attrs(
+        normal=torch.from_numpy(at["normal"])), k=16).numpy()
+    np.testing.assert_array_equal(own, at["fpfh"])
+    from_j = estimate_fpfh(make_cloud(xj, device="cpu").with_attrs(
+        normal=torch.from_numpy(aj["normal"])), k=16).numpy()
+    assert (np.abs(from_j - aj["fpfh"]).max(1) <= 1e-3).mean() > 0.95
+
+
+def _plane_coeffs(text, head):
+    line = [ln for ln in text.splitlines() if ln.startswith(head)][0]
+    c = np.array([float(v) for v in line.split("coefficients=[")[1].rstrip("]").split()])
+    return line, c * np.sign(c[1])
+
+
+@pytest.mark.parametrize("method", ["ransac", "msac"])
+def test_sac_segmentation_tool(scans, capsys, tmp_path, method):
+    """The floor of the first scan (y = 0 in the room, seen from the
+    scanner's pose): other samples than the JAX package's (a seeded
+    generator), the same refined plane to 1e-3 and inlier counts within 1%."""
+    files = scans[0]
+    args = [files[0], "-model", "plane", "-thresh", "0.02", "-method", method]
+    assert t_sacseg.main([*args, "-inliers", str(tmp_path / "in.pcd"),
+                          "-outliers", str(tmp_path / "out.pcd"), *CPU]) == 0
+    line_t, ct = _plane_coeffs(capsys.readouterr().out, "[sac_segmentation]")
+    assert j_sacseg.main(args) == 0
+    line_j, cj = _plane_coeffs(capsys.readouterr().out, "[sac_segmentation]")
+    assert line_t.split(" inliers=")[0] == line_j.split(" inliers=")[0]
+    n_t, n_j = (int(ln.split("inliers=")[1].split("/")[0]) for ln in (line_t, line_j))
+    assert abs(n_t - n_j) <= 0.01 * n_j
+    np.testing.assert_allclose(ct, cj, atol=1e-3)
+    (xi, _), (xo, _) = _xyz(str(tmp_path / "in.pcd")), _xyz(str(tmp_path / "out.pcd"))
+    assert len(xi) == n_t and len(xi) + len(xo) == 1500
+
+
+def test_sac_segmentation_plane_tool(scans, capsys, tmp_path):
+    files = scans[0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    args = ["-thresh", "0.02", "-refine", "-neg"]
+    assert t_sacplane.main([files[0], out_t, *args, *CPU]) == 0
+    line_t, ct = _plane_coeffs(capsys.readouterr().out, "[sac_segmentation_plane]")
+    assert j_sacplane.main([files[0], out_j, *args]) == 0
+    line_j, cj = _plane_coeffs(capsys.readouterr().out, "[sac_segmentation_plane]")
+    np.testing.assert_allclose(ct, cj, atol=1e-3)
+    n_t, n_j = (len(_xyz(o)[0]) for o in (out_t, out_j))
+    assert abs(n_t - n_j) <= 0.01 * n_j and 0 < n_t < 1500
+
+
+@pytest.mark.parametrize("tool", [t_voxel_grid, t_normals, t_icp, t_ndt3d, t_odometry, t_fpfh,
+                                  t_sacseg, t_sacplane],
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     """No silent move to the CPU: without a card and without --device cpu the
@@ -196,5 +269,7 @@ def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     argv = {t_odometry: files[:2]}.get(tool, [files[0], str(tmp_path / "o.pcd")])
     if tool in (t_icp, t_ndt3d):
         argv = files[:2]
+    if tool is t_sacseg:
+        argv = files[:1]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(argv)
