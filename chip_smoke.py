@@ -57,12 +57,31 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    point-to-point ICP and held against the known motion; validate_euclidean
    of the refined pose and of the identity; hash-grid FPFH against brute
    FPFH; B1 timed at the sweep's shape; (a) again with the plain 1-NN; the
-   prerejective core on the card against the CPU run on the same samples.
+   prerejective core on the card against the CPU run on the same samples;
+8. path F, pose-graph alignment: 16 street scans along a closed route (out
+   and back in the other lane), each through voxel_downsample (B2) and moved
+   into the world by odometry poses that drift; LUM in tools.lum's flow
+   (edges between consecutive scans and scans whose centroids are close,
+   B1 1-NN correspondences, a dense solve) over rounds of a shrinking gate,
+   held against the golden poses; the first round's graph with CG; ELCH
+   after ICP of the loop's end onto its start; tools.lum itself on PCD files,
+   which must repeat the first round; dense and CG LUM on a graph of KITTI
+   sequence 00's length (4,541 poses), timed, with peak memory; a small
+   graph on the card against the CPU run;
+9. path G, KinFu mapping at PCL KinFu's defaults: 40 VGA depth frames of a
+   synthetic room seen by a handheld camera, tracked and fused into a 512^3
+   volume over 3 m (no frame lost, the trajectory error, surface points
+   against the room, the last raycast's coverage), one frame's time by stage
+   and its device breakdown, peak memory, save_tsdf/load_tsdf and a world
+   model slab bit for bit, three small frames on the card against the CPU,
+   and integral-image normals of the last frame (both modes: card against
+   CPU at 60 x 80, the error against the true normals at 480 x 640, time).
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
 0.08) m; path C's street and scans come from seed 0, the street with alleys
-from seed 7, path E's two scans of path C's street from seed 5. Any failed check
+from seed 7, path E's two scans of path C's street from seed 5, path F's route
+from seed 8, path G's room and camera from seed 9. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -191,6 +210,65 @@ E_PLAIN_ROWS = 1 << 18
 # phase 4's cloud past 2^30 bounding-box cells: 4000 clusters of 8 points
 FAR_LEAF = 0.1
 FAR_CAPACITY = 40_000
+
+# path F: pose-graph alignment on a closed route through path C's street: scans
+# out along it, then back in the other lane facing the same way, and odometry
+# that drifts by F_DRIFT a step. LUM runs in tools.lum's flow with the tool's
+# arguments F_LUM (its defaults but for the gate). The tool solves once, from
+# correspondences at the drifted poses; path F goes on with one round per gate
+# of F_GATES, correspondences found anew at the corrected poses within a
+# shrinking gate, as ICP anneals. One solve removes only the error its first
+# nearest neighbours see, and rounds at a fixed 1 m gate slide along the
+# street, where ground and facades hold nothing (ROADMAP C22, C30; the CPU
+# rehearsal at a quarter of the scan size: ATE 0.089 m drifted, 0.058, 0.063,
+# 0.075, 0.085 m by round; with the shrinking gate 0.058, 0.049, 0.041, 0.032 m).
+# Point-to-point correspondences between scans of other viewpoints pull the
+# poses across and along the street as much as they correct (C30): what LUM
+# removes on this route is the vertical and the rotational drift
+F_SEED = 8
+F_OUT = 8                          # scans out, then as many back
+F_STEP = 1.5                       # m between scans
+F_BACK = (0.6, 1.0)                # m across the street, deg about y, on the way back
+F_DRIFT = (0.03, 0.003)            # m and rad of odometry error a step
+F_LEAF = 0.2
+F_LUM = dict(loop_dist=5.0, max_corr=2048, iter=5)
+F_GATES = (1.0, 0.5, 0.3, 0.2, 0.1)   # m, the correspondence gate of each round
+# 1.5 x the 0.0488 m measured on the H100 (0.449 of the drifted 0.1087 m; the
+# CPU rehearsal at full size 0.0491 m); first planned as half the drifted ATE.
+# LUM removes the vertical drift (0.100 -> 0.0024 m measured): 1.5 x that
+F_ATE_LIMIT = 0.0732
+F_UP_LIMIT = 0.0036
+F_ELCH_ICP = dict(max_corr_dist=1.0, max_iterations=50)
+# a graph of KITTI sequence 00's length (4,541 scans): dense and CG LUM
+F_KITTI_V = 4541
+F_KITTI_LOOPS = 200
+F_KITTI_C = 256
+F_KITTI_NOISE = 0.01
+F_KITTI_DRIFT = (0.01, 0.0005)     # m and rad a step: ~1% of the distance, as KITTI odometry
+F_KITTI_ITERS = 5
+F_DENSE_LIMIT_S = 10.0
+# from the golden poses LUM must stay where it is, within what the 0.01 m
+# noise of the correspondences lets a 4,541-long chain wander: 1.5 x the
+# 0.0078 m measured on the H100 (first planned as 0.1 m)
+F_KITTI_TRUTH_ATE = 0.0117
+# path G: KinFu at PCL KinFu's defaults (kinfu_large_scale: a 512^3 volume over
+# a 3 m cube, VGA depth at fx = fy = 525, {10, 5, 4} ICP iterations) on a
+# room corner rendered through that pinhole, 40 frames of handheld motion
+G_SEED = 9
+G_RES = 512
+G_SIZE = 3.0
+G_ORIGIN = (-1.5, -1.5, 0.0)
+G_INTR = (525.0, 525.0, 319.5, 239.5)
+G_SHAPE = (480, 640)
+G_FRAMES = 40
+G_STEP = (0.01, 0.5)               # m and deg a frame
+G_TILT = 20.0                      # deg the camera looks down at the start
+G_START = (0.1, -0.3, 0.1)
+G_NOISE = 0.0015                   # m of range noise at 1 m, growing as depth^2
+G_INVALID = 0.005                  # share of pixels dropped
+G_FAR = 4.0
+G_ATE_LIMIT = 0.0036               # 1.5 x the 0.00241 m measured on the H100 (planned: 0.02 m)
+G_MAX_POINTS = 1 << 22
 
 
 def card_line() -> str:
@@ -1568,6 +1646,619 @@ def phase7_path_e(segsum, nn1_mod, street, record_b1, record_b2):
     return {k_: secs0[k_] + secs1[k_] for k_ in secs0 if k_ in secs1}
 
 
+def route_pose(x: float, z: float, deg: float) -> np.ndarray:
+    """A scanner pose at (x, 0, z) of the street turned ``deg`` about y (up)."""
+    P = pose_matrix(z, deg)
+    P[0, 3] = x
+    return P
+
+
+def random_twist(rng, trans: float, rot: float) -> np.ndarray:
+    """exp of a twist of ``trans`` m and ``rot`` rad about random directions."""
+    from scipy.spatial.transform import Rotation
+
+    T = np.eye(4)
+    d, a = rng.normal(size=3), rng.normal(size=3)
+    T[:3, 3] = d * trans / np.linalg.norm(d)
+    T[:3, :3] = Rotation.from_rotvec(a * rot / np.linalg.norm(a)).as_matrix()
+    return T
+
+
+def drifted(golden, rng, trans: float, rot: float):
+    """Odometry poses: the golden steps, each followed by a random error of
+    ``trans`` m and ``rot`` rad, accumulated from the exact first pose."""
+    out = [np.asarray(golden[0], np.float64)]
+    for k in range(1, len(golden)):
+        out.append(out[-1] @ np.linalg.inv(golden[k - 1]) @ golden[k]
+                   @ random_twist(rng, trans, rot))
+    return np.stack(out)
+
+
+def moved(pts: np.ndarray, T: np.ndarray) -> np.ndarray:
+    return (pts @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+
+
+def axis_rms(poses, golden):
+    """RMS translation error of each pose in its golden scan frame: across
+    the street, up, along it (m)."""
+    e = np.stack([np.linalg.inv(g) @ p for p, g in zip(poses, golden)])[:, :3, 3]
+    return tuple(round(float(x), 4) for x in np.sqrt(np.mean(e * e, axis=0)))
+
+
+def kitti_graph(V: int, n_loops: int, C: int, seed: int):
+    """A pose graph of KITTI sequence 00's length: V poses 1 m apart on four
+    laps of a circle (0.5 m up and down), consecutive edges plus ``n_loops``
+    seeded edges between laps; C correspondences an edge, points within 15 m
+    of the first pose seen from both true poses plus F_KITTI_NOISE of noise.
+    Returns (golden [V,4,4], drifted initial poses [V,4,4] float32, edge
+    tensors as ``lum`` takes them, on the card)."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    lap = V // 4
+    radius = lap / (2 * np.pi)
+    th = np.arange(V) / radius
+    G = np.tile(np.eye(4), (V, 1, 1))
+    G[:, :3, :3] = Rotation.from_rotvec(np.outer(th, [0, 1, 0])).as_matrix()
+    G[:, 0, 3] = radius * np.sin(th)
+    G[:, 1, 3] = 0.5 * np.sin(np.arange(V) / 50.0)
+    G[:, 2, 3] = radius * (1 - np.cos(th))
+    first = rng.integers(0, V - lap - 3, n_loops)
+    es = np.concatenate([np.arange(V - 1), first])
+    ed = np.concatenate([np.arange(1, V), first + lap + rng.integers(-2, 3, n_loops)])
+    p = rng.uniform([-15, -2, -15], [15, 5, 15], size=(len(es), C, 3))
+    rel = np.linalg.inv(G[ed]) @ G[es]                      # frame i -> frame j
+    q = np.einsum("eab,ecb->eca", rel[:, :3, :3], p) + rel[:, None, :3, 3]
+    q += rng.normal(scale=F_KITTI_NOISE, size=q.shape)
+    init = drifted(G, rng, *F_KITTI_DRIFT)
+    dev = torch.device("cuda")
+    edges = (torch.from_numpy(es.astype(np.int32)).to(dev),
+             torch.from_numpy(ed.astype(np.int32)).to(dev),
+             torch.from_numpy(p.astype(np.float32)).to(dev),
+             torch.from_numpy(q.astype(np.float32)).to(dev),
+             torch.ones(len(es), C, dtype=torch.bool, device=dev))
+    return G, init.astype(np.float32), edges
+
+
+def small_graph(V: int = 8, C: int = 256, seed: int = 14):
+    """V scans of one scene along a chain of random steps with one loop edge:
+    correspondences are scene points seen from both true poses plus 0.01 m
+    of noise; initial poses a few cm and 0.01 rad off."""
+    rng = np.random.default_rng(seed)
+    true = [np.eye(4)]
+    for _ in range(V - 1):
+        true.append(true[-1] @ random_twist(rng, 0.5, 0.1))
+    scene = rng.normal(scale=3.0, size=(1000, 3))
+    pairs = []
+    for i, j in [(k, k + 1) for k in range(V - 1)] + [(0, V - 1)]:
+        p = scene[rng.choice(len(scene), C, replace=False)]
+        pairs.append((i, j, moved(p, np.linalg.inv(true[i])),
+                      moved(p, np.linalg.inv(true[j])) + rng.normal(scale=0.01, size=p.shape)
+                      .astype(np.float32)))
+    init = np.stack([true[0]] + [random_twist(rng, 0.05, 0.01) @ t for t in true[1:]])
+    return init.astype(np.float32), pairs, C
+
+
+def phase8_path_f(segsum, nn1_mod, street, record_b1, record_b2):
+    """Path F: pose-graph alignment of a closed route of street scans (LUM in
+    tools.lum's flow, with CG, ELCH, tools.lum itself), a graph of KITTI
+    sequence 00's length, and the card against the CPU."""
+    from pcl_tpu_torch import filters, io
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.core.transforms import transform_points
+    from pcl_tpu_torch.registration import trajectory
+    from pcl_tpu_torch.registration.graph import (build_edges_from_correspondences,
+                                                  elch_distribute, lum)
+    from pcl_tpu_torch.registration.icp import icp
+    from pcl_tpu_torch.tools import lum as lum_tool
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 8: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    rng = np.random.default_rng(F_SEED)
+    golden = np.stack([route_pose(0.0, F_STEP * k, 0.0) for k in range(F_OUT)]
+                      + [route_pose(F_BACK[0], F_STEP * (2 * F_OUT - 1 - k), F_BACK[1])
+                         for k in range(F_OUT, 2 * F_OUT)])
+    V = len(golden)
+    end_t, end_r = pose_gap(torch.from_numpy(golden[-1]), torch.from_numpy(golden[0]))
+    scans = [scan_at(street, g, rng) for g in golden]
+    init = drifted(golden, rng, *F_DRIFT)
+    dt, dr = pose_gap(torch.from_numpy(init[-1]), torch.from_numpy(golden[-1]))
+    print(f"phase 8: route of {V} scans of {SCAN_CAPACITY} points, {F_OUT} out at {F_STEP} m "
+          f"steps and {F_OUT} back ({F_BACK[0]} m across, {F_BACK[1]} deg); last scan "
+          f"{end_t:.3f} m and {math.degrees(end_r):.2f} deg from the first; drift at the loop's "
+          f"end {dt:.4f} m, {dr:.5f} rad", flush=True)
+    expect(end_t <= 1.0 and math.degrees(end_r) <= 5.0, "the route does not close")
+
+    ate0 = trajectory.trajectory_ate(init, golden, align=False).rmse
+    warm = filters.voxel_downsample(make_cloud(scans[0]), F_LEAF)        # warm-up
+    warm_pairs = lum_tool.correspondence_pairs([warm.xyz[warm.mask].cpu().numpy()] * 2, 1.0,
+                                               1.0, 64, "cuda", log=lambda s: None)
+    lum(torch.eye(4, device="cuda").repeat(2, 1, 1),
+        *build_edges_from_correspondences(warm_pairs, 64))
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    voxels, secs = timed(lambda: [live_rows(filters.voxel_downsample(make_cloud(s), F_LEAF))
+                                  for s in scans])
+    local = [v.xyz.cpu().numpy() for v in voxels]
+    print(f"phase 8: voxel_downsample({F_LEAF}) of {V} scans in {secs * 1e3:.1f} ms: "
+          f"{min(len(p) for p in local)}-{max(len(p) for p in local)} voxels", flush=True)
+
+    # (a) LUM in tools.lum's flow, rounds of correspondences at the current poses
+    poses = init.copy()
+    kw = dict(loop_dist=F_LUM["loop_dist"], corr_dist=F_GATES[0], max_corr=F_LUM["max_corr"])
+    history = [ate0]
+    for rnd, gate in enumerate(F_GATES):
+        world = [moved(p, T) for p, T in zip(local, poses)]
+        pairs, edges_t = timed(lambda: lum_tool.correspondence_pairs(
+            world, device="cuda", log=lambda s: None, **dict(kw, corr_dist=gate)))
+        loops = [(i, j) for i, j, _, _ in pairs if j != i + 1]
+        edges = build_edges_from_correspondences(pairs, kw["max_corr"])
+        eye = torch.eye(4, device="cuda").repeat(V, 1, 1)
+        res, lsecs = timed(lambda: lum(eye, *edges, max_iterations=F_LUM["iter"]))
+        corr = res.poses.double().cpu().numpy()
+        if rnd == 0:
+            first_round = (world, res, edges)
+        poses = np.einsum("vij,vjk->vik", corr, poses)
+        history.append(trajectory.trajectory_ate(poses, golden, align=False).rmse)
+        print(f"phase 8: (a) round {rnd + 1}, gate {gate} m: {len(pairs)} edges ({len(loops)} not "
+              f"consecutive, e.g. {loops[:4]}), correspondences {edges_t * 1e3:.1f} ms, lum "
+              f"{lsecs * 1e3:.1f} ms for {int(res.iterations)} iterations, residual "
+              f"{float(res.residual):.6f} m^2; ATE {history[-1]:.4f} m", flush=True)
+        if rnd == 0:
+            expect(bool(loops), "no loop edge besides consecutive ones")
+            expect((0, V - 1) in loops, "the loop's ends share no edge")
+    axes0, axes = (axis_rms(P, golden) for P in (init, poses))
+    print(f"phase 8: (a) RMS error across the street, up, along it: drifted {axes0} m, after "
+          f"{axes} m", flush=True)
+    print(f"phase 8: (a) ATE (unaligned) drifted {ate0:.4f} m -> after {len(F_GATES)} rounds "
+          f"{history[-1]:.4f} m ({history[-1] / ate0:.3f} of it); by round {history[1:]} "
+          f"[{card_line()}]", flush=True)
+    expect(history[-1] <= F_ATE_LIMIT, f"LUM left ATE {history[-1]} m (limit {F_ATE_LIMIT} m)")
+    expect(axes[1] <= F_UP_LIMIT, f"LUM left {axes[1]} m of vertical error")
+    expect(history[1] < ate0, "the first LUM round did not lower the ATE")
+
+    # (b) the first round's graph with the CG solver
+    world1, res1, edges1 = first_round
+    eye = torch.eye(4, device="cuda").repeat(V, 1, 1)
+    cg, csecs = timed(lambda: lum(eye, *edges1, max_iterations=F_LUM["iter"], solver="cg"))
+    cg_poses = np.einsum("vij,vjk->vik", cg.poses.double().cpu().numpy(), init)
+    gap = max(pose_gap(a, b)[0] for a, b in zip(cg.poses, res1.poses))
+    print(f"phase 8: (b) CG on round 1's graph: {csecs * 1e3:.1f} ms, ATE "
+          f"{trajectory.trajectory_ate(cg_poses, golden, align=False).rmse:.4f} m (dense "
+          f"round 1: {history[1]:.4f} m), largest pose gap to dense {gap:.3e} m", flush=True)
+
+    # (c) ELCH: ICP of the loop's end onto its start, spread over the chain
+    ends = [make_cloud(world1[-1]), make_cloud(world1[0])]
+    loop_icp, isecs = timed(lambda: icp(*ends, **F_ELCH_ICP))
+    corr = elch_distribute(eye, loop_icp.transform).double().cpu().numpy()
+    elch_poses = np.einsum("vij,vjk->vik", corr, init)
+    before = pose_gap(torch.from_numpy(init[-1]), torch.from_numpy(golden[-1]))
+    after = pose_gap(torch.from_numpy(elch_poses[-1]), torch.from_numpy(golden[-1]))
+    elch_ate = trajectory.trajectory_ate(elch_poses, golden, align=False).rmse
+    print(f"phase 8: (c) ELCH: loop ICP {isecs * 1e3:.1f} ms, {int(loop_icp.iterations)} "
+          f"iterations, converged {bool(loop_icp.converged)}; loop end off {before[0]:.4f} m "
+          f"{before[1]:.5f} rad -> {after[0]:.4f} m {after[1]:.5f} rad; ATE {elch_ate:.4f} m "
+          f"(drifted {ate0:.4f} m)", flush=True)
+    expect(after[0] < before[0], "ELCH did not lower the loop end's error")
+
+    # (d) tools.lum itself on PCD files of the first round's scans (default device)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, f"f{k:02d}.pcd") for k in range(V)]
+        for f, w in zip(files, world1):
+            io.save(f, make_cloud(w))
+        out = pyio.StringIO()
+        with contextlib.redirect_stdout(out):
+            (rc, tsecs) = timed(lambda: lum_tool.main(
+                [*files, "-loop_dist", str(kw["loop_dist"]), "-corr_dist", str(kw["corr_dist"]),
+                 "-max_corr", str(kw["max_corr"]), "-iter", str(F_LUM["iter"])]))
+        outs = [io.load(f.replace(".pcd", "_out.pcd")) for f in files]
+    ref = [transform_points(res1.poses[k], torch.from_numpy(world1[k]).cuda()) for k in range(V)]
+    diff = max(float((o.xyz[o.mask] - r).abs().max()) for o, r in zip(outs, ref))
+    print(f"phase 8: (d) tools.lum on {V} PCD files: return code {rc}, {tsecs * 1e3:.1f} ms; "
+          f"{out.getvalue().splitlines()[-1]}; max |cloud - (a) round 1| {diff:.3e} m", flush=True)
+    expect(rc == 0 and diff <= 1e-5, f"tools.lum differs from (a)'s first round by {diff} m")
+    record_b1["launches_by_path"]["F"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"]["F"] = segsum.segment_sum_sorted.launches
+    print(f"phase 8: path F launched nn1 {nn1_mod.nn1.launches} times (one per edge and "
+          f"round), segsum {segsum.segment_sum_sorted.launches} times", flush=True)
+    expect(nn1_mod.nn1.launches > 0 and segsum.segment_sum_sorted.launches == V,
+           "path F did not launch B1 and B2 as planned")
+
+    # B1 at the shape path F gives it: an edge's subsampled points against a scan
+    tgt = torch.from_numpy(world1[1]).cuda()
+    tmask = torch.ones(len(tgt), dtype=torch.bool, device="cuda")
+    step = max(1, len(world1[0]) // F_LUM["max_corr"])
+    q = torch.from_numpy(np.ascontiguousarray(world1[0][::step][:F_LUM["max_corr"]])).cuda()
+    (ik, dk), (ip, dp) = nn1_mod.nn1(tgt, tmask, q), nn1_mod.nn1_plain(tgt, tmask, q)
+    ms = cuda_ms(lambda: nn1_mod.nn1(tgt, tmask, q), reps=20)
+    plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(tgt, tmask, q), reps=2)
+    bound_s, bound_by = nn1_bound_ms(len(q), len(tgt))
+    print(f"phase 8: nn1 at path F's shape {len(q)} x {len(tgt)}: {ms * 1e3:.1f} us, plain "
+          f"{plain_ms:.2f} ms, bound {bound_s * 1e6:.1f} us ({bound_by}); differing indices "
+          f"{int((ik != ip).sum())}, max |d2 - plain| {float((dk - dp).abs().max()):.3e} "
+          f"[{card_line()}]", flush=True)
+    expect(torch.equal(ik, ip) and torch.equal(dk, dp),
+           "B1 differs from its plain version at path F's shape")
+    record_b1["path_f"] = {"q": len(q), "m": len(tgt), "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_s * 1e3, "bound_by": bound_by}
+
+    # (e) a graph of KITTI sequence 00's length, dense and CG
+    G, init_k, edges_k = kitti_graph(F_KITTI_V, F_KITTI_LOOPS, F_KITTI_C, F_SEED)
+    ate_k0 = trajectory.trajectory_ate(init_k, G, align=False).rmse
+    P0 = torch.from_numpy(init_k).cuda()
+    runs = []
+    for name, kwk in (("dense", dict(solver="dense")), ("cg", dict(solver="cg")),
+                      ("cg 1000", dict(solver="cg", cg_iters=1000))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r, s = timed(lambda: lum(P0, *edges_k, max_iterations=F_KITTI_ITERS, **kwk))
+        ate_k = trajectory.trajectory_ate(r.poses.double().cpu().numpy(), G, align=False).rmse
+        per_it = s * 1e3 / max(int(r.iterations), 1)
+        runs.append((name, per_it, ate_k))
+        print(f"phase 8: (e) V={F_KITTI_V}, E={len(edges_k[0])}, {F_KITTI_C} correspondences "
+              f"an edge, {name}: {int(r.iterations)} iterations, {per_it:.1f} ms per iteration, "
+              f"ATE {ate_k0:.4f} m -> {ate_k:.4f} m, residual {float(r.residual):.3e} m^2, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card_line()}]",
+              flush=True)
+        expect(bool(torch.isfinite(r.poses).all()), f"(e) {name} gave non-finite poses")
+        if name == "dense":
+            expect(per_it <= F_DENSE_LIMIT_S * 1e3,
+                   f"a dense iteration at V={F_KITTI_V} took {per_it} ms")
+    # the linearisation about the world origin is far from the poses of a
+    # route hundreds of metres long (ROADMAP C31): from the golden poses the
+    # solve must stay put
+    r = lum(torch.from_numpy(G.astype(np.float32)).cuda(), *edges_k, max_iterations=2)
+    ate_t = trajectory.trajectory_ate(r.poses.double().cpu().numpy(), G, align=False).rmse
+    print(f"phase 8: (e) dense from the golden poses, 2 iterations: ATE {ate_t:.4f} m", flush=True)
+    expect(ate_t <= F_KITTI_TRUTH_ATE, f"(e) LUM from the golden poses moved to ATE {ate_t} m")
+
+    # the card against the port's CPU run on a small graph
+    P8, pairs8, C8 = small_graph()
+    on = [lum(torch.from_numpy(P8).to(dev), *build_edges_from_correspondences(pairs8, C8, dev),
+              max_iterations=5) for dev in ("cuda", "cpu")]
+    gaps = [pose_gap(a, b) for a, b in zip(on[0].poses, on[1].poses)]
+    gt, gr = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    print(f"phase 8: LUM on a V=8 graph, card against CPU: {gt:.3e} m, {gr:.3e} rad", flush=True)
+    expect(gt <= 1e-4 and gr <= 1e-4, f"card and CPU LUM differ by {gt} m, {gr} rad")
+    check(not failed, "path F: " + "; ".join(failed))
+    return {"ate": (ate0, history[-1]), "kitti": runs}
+
+
+# the room of path G in the camera's world frame (x right, y down, z forward):
+# planes (axis, position, bounds of the other two axes in axis order), an
+# axis-aligned box, a sphere and a vertical cylinder resting on the floor
+G_PLANES = ((1, 1.0, ((-1.45, 1.3), (0.05, 2.7))),          # floor
+            (2, 2.7, ((-1.45, 1.3), (-1.45, 1.0))),         # back wall
+            (0, 1.3, ((-1.45, 1.0), (0.05, 2.7))))          # side wall
+G_BOX = ((-0.6, 0.7, 1.7), (-0.2, 1.0, 2.1))
+G_SPHERE = ((0.45, 0.8, 1.5), 0.2)
+G_CYLINDER = ((0.3, 2.25), 0.15, (0.5, 1.0))                # (x, z), radius, y range
+
+
+def _ray_hits(o: np.ndarray, d: np.ndarray):
+    """Nearest hit of rays ``o + t d`` (``d [..., 3]``, world) with the room:
+    ``(t, unit normal)``, ``t`` inf where nothing is hit."""
+    shape = d.shape[:-1]
+    best = np.full(shape, np.inf)
+    nrm = np.zeros(shape + (3,))
+
+    def take(t, n):
+        nonlocal best
+        better = (t > 1e-6) & (t < best)
+        best = np.where(better, t, best)
+        nrm[better] = np.broadcast_to(n, shape + (3,))[better]
+
+    safe = np.where(np.abs(d) > 1e-12, d, 1e-12)
+    for axis, at, bounds in G_PLANES:
+        t = (at - o[axis]) / safe[..., axis]
+        p = o + t[..., None] * d
+        others = [a for a in range(3) if a != axis]
+        inside = np.ones(shape, bool)
+        for a, (lo, hi) in zip(others, bounds):
+            inside &= (p[..., a] >= lo) & (p[..., a] <= hi)
+        n = np.zeros(3)
+        n[axis] = -np.sign(at - o[axis])
+        take(np.where(inside, t, np.inf), n)
+    lo, hi = (np.array(b) for b in G_BOX)
+    t0, t1 = (lo - o) / safe, (hi - o) / safe
+    tn, tf = np.minimum(t0, t1), np.maximum(t0, t1)
+    face = np.argmax(tn, -1)
+    t_in = tn.max(-1)
+    n = -np.sign(safe) * np.eye(3)[face]              # the entry face, against the ray
+    take(np.where(t_in < tf.min(-1), t_in, np.inf), n)
+    c, r = np.array(G_SPHERE[0]), G_SPHERE[1]
+    oc = o - c
+    b = np.sum(d * oc, -1)
+    disc = b * b - (np.sum(d * d, -1) * (oc @ oc - r * r))
+    t = (-b - np.sqrt(np.maximum(disc, 0))) / np.sum(d * d, -1)
+    p = o + t[..., None] * d
+    take(np.where(disc > 0, t, np.inf), (p - c) / r)
+    (cx, cz), r, (y0, y1) = G_CYLINDER
+    a = d[..., 0] ** 2 + d[..., 2] ** 2
+    bb = d[..., 0] * (o[0] - cx) + d[..., 2] * (o[2] - cz)
+    cc = (o[0] - cx) ** 2 + (o[2] - cz) ** 2 - r * r
+    disc = bb * bb - a * cc
+    t = (-bb - np.sqrt(np.maximum(disc, 0))) / np.maximum(a, 1e-12)
+    p = o + t[..., None] * d
+    side = (disc > 0) & (p[..., 1] >= y0) & (p[..., 1] <= y1)
+    n = np.stack([(p[..., 0] - cx) / r, np.zeros(shape), (p[..., 2] - cz) / r], -1)
+    take(np.where(side, t, np.inf), n)
+    t = (y0 - o[1]) / safe[..., 1]
+    p = o + t[..., None] * d
+    cap = (p[..., 0] - cx) ** 2 + (p[..., 2] - cz) ** 2 <= r * r
+    take(np.where(cap, t, np.inf), np.array([0.0, -1.0, 0.0]))
+    return best, nrm
+
+
+def render_depth(pose: np.ndarray, intr, H: int, W: int, rng=None):
+    """Depth [H,W] (float32, 0 where invalid) of the room seen from ``pose``
+    (camera-to-world), with range noise growing as the square of the depth
+    and a share of invalid pixels when ``rng`` is given, and the true unit
+    normals [H,W,3] in the camera frame."""
+    v, u = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    d_cam = np.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy, np.ones((H, W))], -1)
+    t, n = _ray_hits(pose[:3, 3], d_cam @ pose[:3, :3].T)
+    n_cam = n @ pose[:3, :3]                 # world normals to the camera frame
+    ok = np.isfinite(t) & (t < G_FAR)
+    depth = np.where(ok, t, 0.0)
+    if rng is not None:
+        depth = depth + rng.normal(size=depth.shape) * G_NOISE * depth ** 2
+        ok &= rng.random(depth.shape) >= G_INVALID
+    return np.where(ok, depth, 0.0).astype(np.float32), n_cam
+
+
+def room_distance(p: np.ndarray) -> np.ndarray:
+    """Unsigned distance of world points [N,3] to the room's surfaces."""
+    out = []
+    for axis, at, bounds in G_PLANES:
+        others = [a for a in range(3) if a != axis]
+        off = [np.maximum(np.maximum(lo - p[:, a], p[:, a] - hi), 0) for a, (lo, hi)
+               in zip(others, bounds)]
+        out.append(np.sqrt((p[:, axis] - at) ** 2 + off[0] ** 2 + off[1] ** 2))
+    lo, hi = (np.array(b) for b in G_BOX)
+    outside = np.linalg.norm(np.maximum(np.maximum(lo - p, p - hi), 0), axis=1)
+    inside = np.minimum(p - lo, hi - p).min(1)
+    out.append(np.where(outside > 0, outside, np.abs(inside)))
+    out.append(np.abs(np.linalg.norm(p - np.array(G_SPHERE[0]), axis=1) - G_SPHERE[1]))
+    (cx, cz), r, (y0, y1) = G_CYLINDER
+    rho = np.hypot(p[:, 0] - cx, p[:, 2] - cz)
+    dy = np.maximum(np.maximum(y0 - p[:, 1], p[:, 1] - y1), 0)
+    side = np.hypot(rho - r, dy)
+    cap = np.hypot(p[:, 1] - y0, np.maximum(rho - r, 0))
+    out.append(np.minimum(side, cap))
+    return np.min(out, axis=0)
+
+
+def handheld(rng, n: int) -> np.ndarray:
+    """n camera poses from G_START, each a random step of G_STEP[0] m and
+    G_STEP[1] deg from the last."""
+    from scipy.spatial.transform import Rotation
+
+    P = np.eye(4)
+    P[:3, :3] = Rotation.from_euler("x", -G_TILT, degrees=True).as_matrix()
+    P[:3, 3] = G_START
+    out = [P]
+    for _ in range(n - 1):
+        out.append(out[-1] @ random_twist(rng, G_STEP[0], math.radians(G_STEP[1])))
+    return np.stack(out)
+
+
+def eigen_gap_ok(xyz: np.ndarray, valid: np.ndarray, half: int) -> np.ndarray:
+    """Pixels of an organized frame whose integral-image window covariance is
+    decided by the data and not by the rounding of float32 integral images
+    (ROADMAP C9, C26): lambda1 - lambda0 > max(1e-3 lambda2, 300 delta), the
+    eigenvalues from float64 window sums, delta = 2^-24 (I|p|^2 + 2|mu| I|p|)
+    / cnt with I the integral images at the window's far corner."""
+    H, W = valid.shape
+
+    def box(a):
+        I = np.pad(np.cumsum(np.cumsum(a, 0), 1), ((1, 0), (1, 0)) + ((0, 0),) * (a.ndim - 2))
+        r, c = np.arange(H), np.arange(W)
+        r0, r1 = np.clip(r - half, 0, H), np.clip(r + half + 1, 0, H)
+        c0, c1 = np.clip(c - half, 0, W), np.clip(c + half + 1, 0, W)
+        return I[r1][:, c1] - I[r0][:, c1] - I[r1][:, c0] + I[r0][:, c0], I[r1][:, c1]
+
+    w = valid.astype(np.float64)
+    p = xyz.astype(np.float64) * w[..., None]
+    cnt = np.maximum(box(w)[0], 1.0)
+    mu = box(p)[0] / cnt[..., None]
+    cov = box(p[..., :, None] * p[..., None, :])[0] / cnt[..., None, None] \
+        - mu[..., :, None] * mu[..., None, :]
+    lam = np.linalg.eigvalsh(cov)
+    i2, i1 = box(np.sum(p * p, -1))[1], box(np.linalg.norm(p, axis=-1))[1]
+    delta = 2.0 ** -24 * (i2 + 2 * np.linalg.norm(mu, axis=-1) * i1) / cnt
+    return lam[..., 1] - lam[..., 0] > np.maximum(1e-3 * lam[..., 2], 300 * delta)
+
+
+def phase9_path_g(segsum, nn1_mod, record_b1, record_b2):
+    """Path G: KinFu mapping of a synthetic room at PCL KinFu's defaults
+    (512^3 over 3 m, VGA depth, {10, 5, 4} ICP iterations)."""
+    from pcl_tpu_torch.features import integral_image_normals
+    from pcl_tpu_torch.filters import fast_bilateral
+    from pcl_tpu_torch.fusion import (Intrinsics, WorldModel, depth_to_vertex_map,
+                                      extract_surface_points, integrate, kinfu_init,
+                                      kinfu_step, load_tsdf, make_volume, raycast, save_tsdf)
+    from pcl_tpu_torch.fusion import kinfu as kinfu_mod
+    from pcl_tpu_torch.registration import trajectory
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 9: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    intr = Intrinsics(*G_INTR)
+    H, W = G_SHAPE
+    rng = np.random.default_rng(G_SEED)
+    golden = handheld(rng, G_FRAMES)
+    (frames, truth), secs = timed(lambda: tuple(zip(*[render_depth(P, intr, H, W, rng)
+                                                     for P in golden])))
+    print(f"phase 9: {G_FRAMES} frames of {W} x {H} of the room rendered in {secs:.1f} s; "
+          f"valid share {np.mean([(f > 0).mean() for f in frames]):.3f}, depth "
+          f"{min(f[f > 0].min() for f in frames):.2f}-{max(f.max() for f in frames):.2f} m",
+          flush=True)
+
+    # warm-up on a small volume (allocator, libraries)
+    start = torch.from_numpy(golden[0]).float().cuda()
+    s = kinfu_init(make_volume(64, G_SIZE, origin=G_ORIGIN), H, W, start)
+    for f in frames[:2]:
+        s = kinfu_step(s, torch.from_numpy(f).cuda(), intr)
+    del s
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    state = kinfu_init(make_volume(G_RES, G_SIZE, origin=G_ORIGIN), H, W, start)
+    poses, lost, step_s = [], [], []
+    for f in frames:
+        state, secs = timed(lambda: kinfu_step(state, torch.from_numpy(f).cuda(), intr))
+        poses.append(state.pose.double().cpu().numpy())
+        lost.append(bool(state.lost))
+        step_s.append(secs)
+    record_b1["launches_by_path"]["G"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"]["G"] = segsum.segment_sum_sorted.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ate = trajectory.trajectory_ate(np.stack(poses), golden, align=False)
+    ms = np.array(step_s[1:]) * 1e3
+    print(f"phase 9: {G_FRAMES} frames at {G_RES}^3: {np.sum(step_s):.2f} s, per frame "
+          f"(after the first) mean {ms.mean():.1f} ms, min {ms.min():.1f}, max {ms.max():.1f}; "
+          f"lost {sum(lost)}; ATE (unaligned) rmse {ate.rmse:.5f} m, max {ate.max:.5f} m; peak "
+          f"memory {peak:.2f} GiB; launches nn1 {nn1_mod.nn1.launches}, segsum "
+          f"{segsum.segment_sum_sorted.launches} [{card_line()}]", flush=True)
+    expect(not any(lost), f"frames lost: {[k for k, x in enumerate(lost) if x]}")
+    expect(ate.rmse <= G_ATE_LIMIT, f"KinFu ATE {ate.rmse} m over {G_ATE_LIMIT} m")
+    expect(nn1_mod.nn1.launches == 0 and segsum.segment_sum_sorted.launches == 0,
+           "path G launched a kernel it does not use")
+
+    # the map: surface points against the room, the last raycast's coverage
+    vol = state.volume
+    (pts, valid), secs = timed(lambda: extract_surface_points(vol, max_points=G_MAX_POINTS))
+    p = pts[valid].cpu().numpy()
+    dist = room_distance(p.astype(np.float64))
+    vs = G_SIZE / G_RES
+    print(f"phase 9: extract_surface_points: {len(p)} points in {secs * 1e3:.1f} ms; distance to "
+          f"the room median {np.median(dist) * 1e3:.2f} mm, p90 "
+          f"{np.percentile(dist, 90) * 1e3:.2f} mm (voxel {vs * 1e3:.2f} mm)", flush=True)
+    expect(len(p) > 0 and np.median(dist) <= vs, "surface points lie off the room")
+    last_valid = frames[-1] > 0
+    cover = float(state.prev_hit.cpu().numpy()[last_valid].mean())
+    print(f"phase 9: the last raycast hits {cover:.4f} of the last frame's valid pixels",
+          flush=True)
+    expect(cover >= 0.9, f"the last raycast hits {cover} of the valid pixels")
+
+    # where one frame's time goes, stage by stage, from the last state
+    d = torch.from_numpy(frames[-1]).cuda()
+    pose = state.pose
+    stages = {}
+    db, stages["bilateral"] = timed(lambda: torch.where(d > 0, fast_bilateral(d), 0.0))
+
+    def pyramid():
+        ds = [db, kinfu_mod._pyr_down_depth(db)]
+        ds.append(kinfu_mod._pyr_down_depth(ds[-1]))
+        m1 = kinfu_mod._pyr_down_map(state.prev_verts, state.prev_normals, state.prev_hit)
+        return ds, [(state.prev_verts, state.prev_normals, state.prev_hit), m1,
+                    kinfu_mod._pyr_down_map(*m1)]
+
+    (ds, maps), stages["pyramid"] = timed(pyramid)
+
+    def track():
+        P = pose
+        for level in (2, 1, 0):
+            il = kinfu_mod._scale_intrinsics(intr, level)
+            P, _ = kinfu_mod._projective_icp(depth_to_vertex_map(ds[level], il), ds[level] > 0,
+                                             *maps[level], P, il, pose,
+                                             kinfu_mod.LEVEL_ITERS[level], 0.1, math.pi / 6)
+        return P
+
+    _, stages["icp"] = timed(track)
+    vol2, stages["integrate"] = timed(lambda: integrate(vol, db, intr, pose))
+    _, stages["raycast"] = timed(lambda: raycast(vol2, intr, pose, H, W))
+    del vol2
+    print("phase 9: one frame by stage: " + ", ".join(f"{k} {v * 1e3:.2f} ms"
+                                                     for k, v in stages.items())
+          + f" [{card_line()}]", flush=True)
+    device_breakdown("phase 9 (one kinfu_step)", lambda: kinfu_step(state, d, intr))
+
+    # checkpoint and world model
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vol.npz")
+        _, wsecs = timed(lambda: save_tsdf(path, vol))
+        size = os.path.getsize(path)
+        back, rsecs = timed(lambda: load_tsdf(path))
+    same = all(torch.equal(getattr(back, n), getattr(vol, n))
+               for n in ("tsdf", "weight", "origin", "voxel_size", "trunc"))
+    print(f"phase 9: save_tsdf of the {G_RES}^3 volume {wsecs:.2f} s ({size / 2**20:.1f} MiB), "
+          f"load_tsdf {rsecs:.2f} s, bitwise equal {same}", flush=True)
+    expect(same, "the volume read back differs")
+    del back
+    wm = WorldModel(vs, G_ORIGIN)
+    x0 = G_RES // 2
+    slab = (vol.tsdf[x0:x0 + 16], vol.weight[x0:x0 + 16])
+    wm.push_slab(G_ORIGIN[0] + x0 * vs, *slab)
+    got = wm.fetch_slab(G_ORIGIN[0] + x0 * vs, tuple(slab[0].shape))
+    round_trip = all(np.array_equal(g, s_.cpu().numpy()) for g, s_ in zip(got, slab))
+    print(f"phase 9: WorldModel push and fetch of a 16-plane x-slab: equal {round_trip}",
+          flush=True)
+    expect(round_trip, "the world model's slab differs")
+
+    # the card against the CPU: three frames at 96^3 and 60 x 80
+    small = Intrinsics(G_INTR[0] / 8, G_INTR[1] / 8, (G_INTR[2] + 0.5) / 8 - 0.5,
+                       (G_INTR[3] + 0.5) / 8 - 0.5)
+    sframes = [render_depth(P, small, H // 8, W // 8, rng)[0] for P in golden[:3]]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        s = kinfu_init(make_volume(96, G_SIZE, origin=G_ORIGIN, device=dev), H // 8, W // 8,
+                       torch.from_numpy(golden[0]).float().to(dev))
+        out = []
+        for f in sframes:
+            s = kinfu_step(s, torch.from_numpy(f).to(dev), small)
+            out.append((s.pose.double().cpu(), bool(s.lost)))
+        runs.append(out)
+    gaps = [pose_gap(a[0], b[0]) for a, b in zip(*runs)]
+    gt, gr = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    print(f"phase 9: three frames at 96^3 and {W // 8} x {H // 8}, card against CPU: {gt:.3e} m, "
+          f"{gr:.3e} rad, lost {[x[1] for x in runs[0]]} / {[x[1] for x in runs[1]]}", flush=True)
+    expect(gt <= 1e-4 and gr <= 1e-4 and [x[1] for x in runs[0]] == [x[1] for x in runs[1]],
+           f"KinFu on the card and the CPU differ by {gt} m, {gr} rad")
+
+    # integral normals of the last frame's vertex map
+    vmap = depth_to_vertex_map(d, intr)
+    ok = d > 0
+    true_n = torch.from_numpy(truth[-1]).float()
+    for mode in ("covariance", "gradient"):
+        run = (lambda m=mode: integral_image_normals(vmap, ok, mode=m))
+        ms_n = cuda_ms(run, reps=5)
+        n = run()[0].cpu()
+        has = n.abs().sum(-1) > 0
+        ang = torch.rad2deg(torch.arccos(torch.clamp((n * true_n).sum(-1).abs(), max=1.0)))[has]
+        sub = (vmap[::8, ::8].contiguous(), ok[::8, ::8].contiguous())
+        n_card = integral_image_normals(*sub, mode=mode)[0].cpu()
+        n_cpu = integral_image_normals(*(a.cpu() for a in sub), mode=mode)[0]
+        zero_same = torch.equal(n_card.abs().sum(-1) == 0, n_cpu.abs().sum(-1) == 0)
+        cmp = n_cpu.abs().sum(-1) > 0
+        if mode == "covariance":
+            cmp &= torch.from_numpy(eigen_gap_ok(sub[0].cpu().numpy(), sub[1].cpu().numpy(), 2))
+        dots = (n_card * n_cpu).sum(-1)[cmp]
+        worst = float(dots.min()) if len(dots) else float("nan")
+        print(f"phase 9: integral normals ({mode}) at {W} x {H}: {ms_n:.3f} ms; error against the "
+              f"true normals median {float(ang.median()):.2f} deg, p99 "
+              f"{float(torch.quantile(ang, 0.99)):.2f} deg over {int(has.sum())} pixels (printed, "
+              f"not checked: ROADMAP C25); at {W // 8} x {H // 8} card against CPU: "
+              f"{int(cmp.sum())} pixels compared, min n.n' {worst:.7f}, zero normals alike "
+              f"{zero_same}", flush=True)
+        expect(zero_same and len(dots) > 0 and worst >= 1 - 1e-5,
+               f"integral normals ({mode}) on the card differ from the CPU run")
+    check(not failed, "path G: " + "; ".join(failed))
+    return {"ms_frame": float(ms.mean()), "ate": ate.rmse, "stages": stages, "peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1626,9 +2317,13 @@ def main() -> int:
     lap("phase 6")
     stages_e = phase7_path_e(segsum, nn1_mod, street, record, record_b2)
     lap("phase 7")
+    out_f = phase8_path_f(segsum, nn1_mod, street, record, record_b2)
+    lap("phase 8")
+    out_g = phase9_path_g(segsum, nn1_mod, record, record_b2)
+    lap("phase 9")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
-        # NDT), E (global registration)
+        # NDT), E (global registration), F (pose graph), G (KinFu: none)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -1640,7 +2335,10 @@ def main() -> int:
           f"plain {record_b2['plain_ms'] * 1e3:.1f} us, library "
           f"{record_b2['library_ms'] * 1e3:.1f} us); path E stages (two scans) "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages_e.items())
-          + f" [{card}]", flush=True)
+          + f"; path F ATE {out_f['ate'][0]:.4f} -> {out_f['ate'][1]:.4f} m, KITTI-size graph "
+          + ", ".join(f"{n} {ms:.1f} ms/iteration" for n, ms, _ in out_f["kitti"])
+          + f"; path G {out_g['ms_frame']:.1f} ms per frame, ATE {out_g['ate']:.5f} m, peak "
+          f"{out_g['peak_gib']:.2f} GiB [{card}]", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 Turns arrays that the JAX package produced, already converted to numpy by
 the caller (``np.asarray(jax_array)``), into the port's objects, so that a
-cloud, a cell table, a hash grid or an NDT grid built there can be used here. This module reads only
+cloud, a cell table, a hash grid, an NDT grid, a TSDF volume or a KinFu
+tracker's state built there can be used here. This module reads only
 numpy arrays and plain values; it imports nothing of the JAX package.
 """
 
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from pcl_tpu_torch.core.cloud import Cloud, _device
+from pcl_tpu_torch.fusion.kinfu import KinfuState
+from pcl_tpu_torch.fusion.tsdf import TSDFVolume
 from pcl_tpu_torch.registration.ndt import NDTGrid
 from pcl_tpu_torch.search.cell_list import CellTable
 from pcl_tpu_torch.search.hashgrid import HashGrid
@@ -119,4 +122,51 @@ def hashgrid_from_arrays(
         sorted_idx=torch.tensor(np.asarray(sorted_idx, np.int32), device=dev),
         sorted_mask=torch.tensor(np.asarray(sorted_mask, bool), device=dev),
         bucket_start=torch.tensor(bucket_start, device=dev),
+    )
+
+
+def tsdf_volume_from_arrays(
+    tsdf: np.ndarray,
+    weight: np.ndarray,
+    origin: np.ndarray,
+    voxel_size,
+    trunc,
+    device=None,
+) -> TSDFVolume:
+    """A TSDFVolume holding a volume fused elsewhere."""
+    dev = _device(device)
+    tsdf = np.asarray(tsdf, np.float32)
+    if tsdf.ndim != 3 or len(set(tsdf.shape)) != 1 or np.shape(weight) != tsdf.shape:
+        raise ValueError(f"TSDF volume {tsdf.shape} / weight {np.shape(weight)} are not "
+                         "one [R, R, R] shape")
+    return TSDFVolume(
+        tsdf=torch.tensor(tsdf, device=dev),
+        weight=torch.tensor(np.asarray(weight, np.float32), device=dev),
+        origin=torch.tensor(np.asarray(origin, np.float32), device=dev),
+        voxel_size=torch.tensor(np.float32(voxel_size), device=dev),
+        trunc=torch.tensor(np.float32(trunc), device=dev),
+    )
+
+
+def kinfu_state_from_arrays(
+    volume: TSDFVolume,
+    pose: np.ndarray,
+    prev_verts: np.ndarray,
+    prev_normals: np.ndarray,
+    prev_hit: np.ndarray,
+    frame,
+    lost,
+    device=None,
+) -> KinfuState:
+    """A KinfuState that goes on tracking from a state reached elsewhere;
+    ``volume`` comes from ``tsdf_volume_from_arrays``."""
+    dev = _device(device)
+    return KinfuState(
+        volume=volume,
+        pose=torch.tensor(np.asarray(pose, np.float32), device=dev),
+        prev_verts=torch.tensor(np.asarray(prev_verts, np.float32), device=dev),
+        prev_normals=torch.tensor(np.asarray(prev_normals, np.float32), device=dev),
+        prev_hit=torch.tensor(np.asarray(prev_hit, bool), device=dev),
+        frame=torch.tensor(int(frame), dtype=torch.int32, device=dev),
+        lost=torch.tensor(bool(lost), device=dev),
     )

@@ -13,6 +13,12 @@ from pcl_tpu_torch.registration.estimation import (
     point_to_plane_system,
 )
 from pcl_tpu_torch.registration.gicp import GICPResult, gicp, regularized_covariances
+from pcl_tpu_torch.registration.graph import (
+    PoseGraphResult,
+    build_edges_from_correspondences,
+    elch_distribute,
+    lum,
+)
 from pcl_tpu_torch.registration.ia import IAResult, feature_knn, prerejective_ransac, sac_ia
 from pcl_tpu_torch.registration.icp import ICPResult, align, fitness_score, icp
 from pcl_tpu_torch.registration.ndt import NDTResult, build_grid, ndt
@@ -43,5 +49,7 @@ __all__ = [
     "ATEResult", "RPEResult", "trajectory_ate", "trajectory_rpe",
     "odometry_sequence", "make_drift_sequence", "umeyama_se3",
     "IAResult", "sac_ia", "prerejective_ransac", "feature_knn",
+    "PoseGraphResult", "lum", "elch_distribute",
+    "build_edges_from_correspondences",
     "ValidationResult", "validate_euclidean", "rejection",
 ]

@@ -30,6 +30,11 @@ from pcl_tpu_torch.ops import batch33
 from pcl_tpu_torch.search import bruteforce, cell_list
 
 
+# the JAX package's ``gicp._skew`` (``registration/graph.py`` imports it) is the
+# cross-product matrix, ``transforms.hat``
+_skew = hat
+
+
 def regularized_covariances(
     xyz: torch.Tensor,
     mask: torch.Tensor,

@@ -469,3 +469,169 @@ def test_ia_core_on_card_matches_cpu(cuda):
                                    atol=1e-4)
         assert abs(float(on_card.error) - float(on_cpu.error)) <= 1e-5
     assert nn1_mod.nn1.launches == before + 2
+
+
+# -- pose graph, KinFu mapping and integral normals (slice 6) ---------------
+
+def _pose_graph(V=8, C=256, seed=14):
+    """V poses along a chain with one loop edge; correspondences are scene
+    points seen from both poses plus 0.01 m noise; initial poses drifted."""
+    from pcl_tpu_torch.core.transforms import se3_exp
+
+    rng = np.random.default_rng(seed)
+
+    def step(rot, trans):
+        xi = np.concatenate([rng.normal(size=3) * trans, rng.normal(size=3) * rot])
+        return se3_exp(torch.tensor(xi, dtype=torch.float32)).double().numpy()
+
+    true = [np.eye(4)]
+    for _ in range(V - 1):
+        true.append(true[-1] @ step(0.1, 0.5))
+    scene = rng.normal(scale=3.0, size=(1000, 3))
+    pairs = []
+    for i, j in [(k, k + 1) for k in range(V - 1)] + [(0, V - 1)]:
+        p = scene[rng.choice(len(scene), C, replace=False)]
+        ti, tj = np.linalg.inv(true[i]), np.linalg.inv(true[j])
+        pairs.append((i, j, (p @ ti[:3, :3].T + ti[:3, 3]).astype(np.float32),
+                      (p @ tj[:3, :3].T + tj[:3, 3] + rng.normal(scale=0.01, size=p.shape))
+                      .astype(np.float32)))
+    init = np.stack([true[0]] + [step(0.01, 0.05) @ t for t in true[1:]]).astype(np.float32)
+    return init, pairs, C
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_lum_on_card_matches_cpu(cuda, solver):
+    """LUM on the card against the port's CPU run: poses within 1e-4 m and
+    1e-4 rad (cuSOLVER and LAPACK round the solve differently)."""
+    from pcl_tpu_torch.registration.graph import build_edges_from_correspondences, lum
+
+    P, pairs, C = _pose_graph()
+    runs = [lum(torch.from_numpy(P).to(dev), *build_edges_from_correspondences(pairs, C, dev),
+                max_iterations=5, solver=solver) for dev in (cuda, "cpu")]
+    a, b = (r.poses.cpu().double().numpy() for r in runs)
+    assert np.abs(a[:, :3, 3] - b[:, :3, 3]).max() <= 1e-4
+    R = np.einsum("vij,vkj->vik", a[:, :3, :3], b[:, :3, :3])
+    assert np.abs(R - np.eye(3)).max() <= 1e-4
+    assert int(runs[0].iterations) == int(runs[1].iterations) == 5
+
+
+def _room_depth(pose, H=60, W=80, f=65.625):
+    """Depth of a floor, a back wall and a box seen through a pinhole (camera
+    frame: x right, y down, z forward), numpy."""
+    v, u = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    d = np.stack([(u - (W - 1) / 2) / f, (v - (H - 1) / 2) / f, np.ones((H, W))], -1)
+    dw = d @ pose[:3, :3].T
+    o = pose[:3, 3]
+    best = np.full((H, W), np.inf)
+    for axis, at in ((1, 1.0), (2, 2.6), (0, 1.2)):            # floor, back wall, side wall
+        t = (at - o[axis]) / np.where(np.abs(dw[..., axis]) > 1e-9, dw[..., axis], 1e-9)
+        best = np.where((t > 0) & (t < best), t, best)
+    lo, hi = np.array([-0.4, 0.6, 1.6]), np.array([0.1, 1.0, 2.0])      # a box on the floor
+    t0 = (lo - o) / np.where(np.abs(dw) > 1e-9, dw, 1e-9)
+    t1 = (hi - o) / np.where(np.abs(dw) > 1e-9, dw, 1e-9)
+    tn, tf = np.minimum(t0, t1).max(-1), np.maximum(t0, t1).min(-1)
+    best = np.where((tn < tf) & (tn > 0) & (tn < best), tn, best)
+    return np.where(np.isfinite(best) & (best < 4.0), best, 0.0).astype(np.float32)
+
+
+def _room_frames(n=4):
+    from scipy.spatial.transform import Rotation
+
+    tilt = np.eye(4)
+    tilt[:3, :3] = Rotation.from_euler("x", -20, degrees=True).as_matrix()
+    poses = []
+    for k in range(n):
+        step = np.eye(4)
+        step[:3, :3] = Rotation.from_euler("y", 0.5 * k, degrees=True).as_matrix()
+        step[:3, 3] = (0.01 * k, -0.005 * k, 0.004 * k)
+        poses.append((step @ tilt).astype(np.float32))
+    return poses, [_room_depth(p.astype(np.float64)) for p in poses]
+
+
+def test_integrate_and_raycast_on_card_match_cpu(cuda):
+    """96^3: weights equal and TSDF within 1e-5 on the card and the CPU but
+    for voxels within rounding of a half pixel (at most 0.5%); raycast hits
+    equal but for at most 0.5% of the pixels, vertices within 1e-4 m."""
+    from pcl_tpu_torch.fusion import Intrinsics, integrate, make_volume, raycast
+
+    intr = Intrinsics(65.625, 65.625, 39.5, 29.5)
+    poses, depths = _room_frames(3)
+    vols = [make_volume(96, 3.0, origin=(-1.5, -1.5, 0.0), device=dev) for dev in (cuda, "cpu")]
+    for P, d in zip(poses, depths):
+        vols = [integrate(v, torch.from_numpy(d).to(v.tsdf.device), intr,
+                          torch.from_numpy(P).to(v.tsdf.device)) for v in vols]
+    w_card, w_cpu = vols[0].weight.cpu(), vols[1].weight
+    differ = (w_card != w_cpu) | ((vols[0].tsdf.cpu() - vols[1].tsdf).abs() > 1e-5)
+    assert float(differ.float().mean()) <= 0.005 and float(w_cpu.max()) == 3.0
+    maps = [raycast(v, intr, torch.from_numpy(poses[-1]).to(v.tsdf.device), 60, 80) for v in vols]
+    hit_card, hit_cpu = maps[0][2].cpu(), maps[1][2]
+    assert float((hit_card != hit_cpu).float().mean()) <= 0.005
+    both = hit_card & hit_cpu
+    assert float(both.float().mean()) > 0.8
+    assert float((maps[0][0].cpu() - maps[1][0])[both].abs().max()) <= 1e-4
+
+
+def test_kinfu_step_on_card_repeats_and_matches_cpu(cuda):
+    """Two runs of four frames on the card are bitwise equal (the bilateral
+    splat adds in a fixed order), and they track as the CPU run does: poses
+    within 1e-4, ``lost`` equal."""
+    from pcl_tpu_torch.fusion import Intrinsics, kinfu_init, kinfu_step, make_volume
+
+    intr = Intrinsics(65.625, 65.625, 39.5, 29.5)
+    poses, depths = _room_frames(4)
+
+    def run(dev):
+        s = kinfu_init(make_volume(96, 3.0, origin=(-1.5, -1.5, 0.0), device=dev), 60, 80,
+                       torch.from_numpy(poses[0]).to(dev))
+        out = []
+        for d in depths:
+            s = kinfu_step(s, torch.from_numpy(d).to(dev), intr)
+            out.append(s)
+        return out
+
+    a, b, c = run(cuda), run(cuda), run("cpu")
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x.pose, y.pose) and torch.equal(x.volume.tsdf, y.volume.tsdf)
+        assert torch.equal(x.prev_verts, y.prev_verts)
+        assert (x.pose.cpu() - z.pose).abs().max() <= 1e-4
+        assert bool(x.lost) == bool(z.lost) is False
+
+
+@pytest.mark.parametrize("mode", ["covariance", "gradient"])
+def test_integral_normals_on_card_match_cpu(cuda, mode):
+    """60 x 80, a frame of 1 cm pixels about the origin: normals n.n' >=
+    1 - 1e-5 on the pixels whose 9 x 9 windows are well conditioned against
+    the rounding of the integral images (ROADMAP C26; measured on this frame
+    on the CPU: 92% of them), zero normals in the same places."""
+    from pcl_tpu_torch.features import integral_image_normals
+
+    r, c = np.meshgrid(np.arange(60), np.arange(80), indexing="ij")
+    x, y = (c - 40) * 0.01, (r - 30) * 0.01
+    xyz = np.stack([x, y, 0.05 * np.sin(9 * x) * np.cos(7 * y) + 0.2 * y], -1).astype(np.float32)
+    valid = np.ones((60, 80), bool)
+    valid[10:20, 10:20] = False
+    vp = torch.tensor([0.0, 0.0, -3.0])
+    n_card, n_cpu = (integral_image_normals(torch.from_numpy(xyz).to(dev),
+                                            torch.from_numpy(valid).to(dev), smoothing_size=9,
+                                            viewpoint=vp.to(dev), mode=mode)[0].cpu()
+                     for dev in (cuda, "cpu"))
+    assert torch.equal(n_card.abs().sum(-1) == 0, n_cpu.abs().sum(-1) == 0)
+    dots = (n_card * n_cpu).sum(-1)[n_cpu.abs().sum(-1) > 0]
+    assert float((dots >= 1 - 1e-5).float().mean()) >= 0.9
+
+
+def test_lum_tool_launches_b1(cuda, tmp_path, capsys):
+    """tools.lum on the card (its default device): B1 once per edge."""
+    from pcl_tpu_torch import io
+    from pcl_tpu_torch.tools import lum as lum_tool
+
+    rng = np.random.default_rng(15)
+    base = rng.uniform(-1, 1, size=(2000, 3)).astype(np.float32)
+    files = []
+    for i, off in enumerate([(0, 0, 0), (0.05, 0, 0), (0, 0.05, 0)]):
+        files.append(str(tmp_path / f"scan{i}.pcd"))
+        io.save(files[-1], make_cloud(base + np.float32(off), device="cpu"))
+    before = nn1_mod.nn1.launches
+    assert lum_tool.main([*files, "-corr_dist", "0.5", "-max_corr", "256"]) == 0
+    assert nn1_mod.nn1.launches == before + 3
+    assert "[lum] 3 edges, 3 vertices" in capsys.readouterr().out

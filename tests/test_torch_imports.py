@@ -15,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from pcl_tpu_torch import fusion as tfusion
 from pcl_tpu_torch import interop
 from pcl_tpu_torch.core import cloud as tcloud
+from pcl_tpu_torch.registration import graph as tgraph
+from pcl_tpu_torch.registration import graph_optimizer as tgo
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pcl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -64,7 +67,10 @@ def test_new_modules_are_covered():
                  "segmentation/sac_segmentation.py", "registration/rejection.py",
                  "registration/ia.py", "registration/validation.py", "io/ply.py",
                  "tools/fpfh_estimation.py", "tools/sac_segmentation.py",
-                 "tools/sac_segmentation_plane.py"):
+                 "tools/sac_segmentation_plane.py", "registration/graph.py",
+                 "registration/graph_optimizer.py", "features/integral_normals.py",
+                 "filters/convolution.py", "fusion/__init__.py", "fusion/tsdf.py",
+                 "fusion/kinfu.py", "fusion/world_model.py", "tools/lum.py", "tools/elch.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -82,11 +88,28 @@ def test_scan_sees_forbidden_imports(tmp_path):
     lambda: interop.cloud_from_arrays(np.zeros((4, 3), np.float32), np.ones(4, bool)),
     lambda: interop.hashgrid_from_arrays(0.5, 2, np.zeros((1, 3)), np.zeros(1), np.ones(1),
                                          np.zeros(4)),
-], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays"])
+    lambda: interop.tsdf_volume_from_arrays(np.ones((2, 2, 2)), np.zeros((2, 2, 2)),
+                                            np.zeros(3), 0.1, 0.3),
+    lambda: tfusion.make_volume(4, 1.0),
+    lambda: tgraph.build_edges_from_correspondences([(0, 1, np.zeros((3, 3)), np.zeros((3, 3)))],
+                                                    4),
+    lambda: tgo.PoseGraph().optimize("elch", loop_transform=np.eye(4)),
+], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays",
+        "tsdf_volume_from_arrays", "make_volume", "build_edges_from_correspondences",
+        "PoseGraph.optimize"])
 def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+
+
+def test_load_tsdf_defaults_to_cuda(monkeypatch, tmp_path):
+    path = str(tmp_path / "v.npz")
+    tfusion.save_tsdf(path, tfusion.make_volume(4, 1.0, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfusion.load_tsdf(path)
+    assert tfusion.load_tsdf(path, device="cpu").tsdf.shape == (4, 4, 4)
 
 
 def test_cuda_is_what_none_asks_for(monkeypatch):

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from pcl_tpu.tools import fpfh_estimation as j_fpfh
+from pcl_tpu.tools import elch as j_elch
 from pcl_tpu.tools import icp as j_icp
+from pcl_tpu.tools import lum as j_lum
 from pcl_tpu.tools import ndt3d as j_ndt3d
 from pcl_tpu.tools import normal_estimation as j_normals
 from pcl_tpu.tools import odometry as j_odometry
@@ -23,7 +25,9 @@ from pcl_tpu_torch import io as tio
 from pcl_tpu_torch.core.cloud import make_cloud, to_numpy
 from pcl_tpu_torch.registration import trajectory as ttraj
 from pcl_tpu_torch.tools import fpfh_estimation as t_fpfh
+from pcl_tpu_torch.tools import elch as t_elch
 from pcl_tpu_torch.tools import icp as t_icp
+from pcl_tpu_torch.tools import lum as t_lum
 from pcl_tpu_torch.tools import ndt3d as t_ndt3d
 from pcl_tpu_torch.tools import normal_estimation as t_normals
 from pcl_tpu_torch.tools import odometry as t_odometry
@@ -219,6 +223,66 @@ def test_fpfh_estimation_tool(scans, capsys, tmp_path):
     assert (np.abs(from_j - aj["fpfh"]).max(1) <= 1e-3).mean() > 0.95
 
 
+def _outputs(files, suffix):
+    return [_xyz(f.replace(".pcd", suffix + ".pcd"))[0] for f in files]
+
+
+def test_lum_tool(scans, capsys):
+    """Both tools find the same edges and correspondence counts (exact 1-NN
+    either way; the scans hold no ties), and write clouds within 1e-4 m."""
+    files = scans[0]
+    args = [*files, "-corr_dist", "0.5", "-max_corr", "256", "-iter", "6"]
+    assert t_lum.main([*args, "-suffix", "_t", *CPU]) == 0
+    out_t = capsys.readouterr().out.splitlines()
+    assert j_lum.main([*args, "-suffix", "_j"]) == 0
+    out_j = capsys.readouterr().out.splitlines()
+    assert out_t[:-1] == out_j[:-1] and len(out_t) == 4        # three edges, then the solve
+    head_t, res_t = out_t[-1].split(" residual ")
+    head_j, res_j = out_j[-1].split(" residual ")
+    assert head_t == head_j == "[lum] 3 edges, 3 vertices,"
+    assert res_t.split(" after ")[1] == res_j.split(" after ")[1]
+    np.testing.assert_allclose(float(res_t.split()[0]), float(res_j.split()[0]), rtol=1e-4)
+    for a, b in zip(_outputs(files, "_t"), _outputs(files, "_j")):
+        np.testing.assert_allclose(a, b, atol=1e-4)               # metres
+
+
+def test_lum_tool_without_edges(tmp_path, capsys):
+    """Scans too far apart for any correspondence: both tools give up."""
+    rng = np.random.default_rng(3)
+    files = []
+    for i in range(2):
+        files.append(str(tmp_path / f"far{i}.pcd"))
+        tio.save(files[-1], make_cloud(rng.uniform(-1, 1, (50, 3)) + 30 * i, device="cpu"))
+    assert t_lum.main([*files, *CPU]) == 1
+    assert j_lum.main(files) == 1
+    assert capsys.readouterr().err.count("[lum] no edges found") == 2
+
+
+def test_elch_tool(tmp_path, capsys):
+    """The JAX tool's chain (a loop end 2 cm off the start): the same printed
+    lines but for the fitness, which is float32 rounding here (both below
+    1e-8 m^2), and corrected clouds within 1e-4 m."""
+    rng = np.random.default_rng(5)
+    base = rng.uniform(-1, 1, size=(400, 3)).astype(np.float32)
+    files = []
+    for i, off in enumerate([(0, 0, 0), (0.2, 0, 0), (0.02, 0, 0)]):
+        files.append(str(tmp_path / f"s{i}.pcd"))
+        tio.save(files[-1], make_cloud(base + np.float32(off), device="cpu"))
+    args = [*files, "-dist", "0.3", "-iter", "20"]
+    assert t_elch.main([*args, "-suffix", "_t", *CPU]) == 0
+    out_t = capsys.readouterr().out
+    assert j_elch.main([*args, "-suffix", "_j"]) == 0
+    out_j = capsys.readouterr().out
+    fit = [float(o.split("fitness=")[1].split()[0]) for o in (out_t, out_j)]
+    assert max(fit) < 1e-8
+    assert [o.split("fitness=")[0] for o in (out_t, out_j)] == ["[elch] loop ICP converged=True "] * 2
+    assert out_t.splitlines()[1:] == out_j.splitlines()[1:] == ["[elch] wrote 3 corrected scans"]
+    for a, b in zip(_outputs(files, "_t"), _outputs(files, "_j")):
+        np.testing.assert_allclose(a, b, atol=1e-4)               # metres
+    np.testing.assert_allclose(_outputs(files, "_t")[2], base, atol=1e-4)
+    assert t_elch.main([*files[:2], *CPU]) == 1
+
+
 def _plane_coeffs(text, head):
     line = [ln for ln in text.splitlines() if ln.startswith(head)][0]
     c = np.array([float(v) for v in line.split("coefficients=[")[1].rstrip("]").split()])
@@ -259,7 +323,7 @@ def test_sac_segmentation_plane_tool(scans, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("tool", [t_voxel_grid, t_normals, t_icp, t_ndt3d, t_odometry, t_fpfh,
-                                  t_sacseg, t_sacplane],
+                                  t_sacseg, t_sacplane, t_lum, t_elch],
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     """No silent move to the CPU: without a card and without --device cpu the
@@ -269,6 +333,8 @@ def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     argv = {t_odometry: files[:2]}.get(tool, [files[0], str(tmp_path / "o.pcd")])
     if tool in (t_icp, t_ndt3d):
         argv = files[:2]
+    if tool in (t_lum, t_elch):
+        argv = files
     if tool is t_sacseg:
         argv = files[:1]
     with pytest.raises(RuntimeError, match="no CUDA device"):
