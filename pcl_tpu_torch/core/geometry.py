@@ -1,14 +1,16 @@
 """Masked geometry primitives: means, covariance, 3x3 eigensystems, PCA and
 rigid alignment.
 
-Counterpart of ``pcl_tpu/core/geometry.py`` up to ``pca``. ``eigh33`` is
+Counterpart of ``pcl_tpu/core/geometry.py``. ``eigh33`` is
 the JAX package's analytic closed form written as torch ops (not
 ``torch.linalg.eigh``), so normals follow the same formula. The rotation
 estimator is the JAX package's own algorithm (Horn's quaternion by
 shifted power iteration plus Rayleigh-quotient inverse iteration), not an
 SVD: an SVD moves the transforms at the 1e-7 level and with them ICP's
-iteration counts. All functions take explicit masks or weights; padding rows
-must be zero so that plain sums are masked sums.
+iteration counts. ``hausdorff`` takes its two directed maxima from the
+exact 1-NN (kernel B1), not from a dense distance matrix. All functions take
+explicit masks or weights; padding rows must be zero so that plain sums are
+masked sums.
 """
 
 from __future__ import annotations
@@ -260,3 +262,30 @@ def umeyama(
     T[..., :3, 3] = t
     T[..., 3, 3] = 1.0
     return T
+
+
+# ---------------------------------------------------------------------------
+# Distances
+# ---------------------------------------------------------------------------
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``[N, 3] x [M, 3] -> [N, M]`` squared distances by the matmul identity
+    ``||a||^2 + ||b||^2 - 2 a.b``, clamped at 0."""
+    a2 = torch.sum(a * a, dim=-1)
+    b2 = torch.sum(b * b, dim=-1)
+    return torch.clamp(a2[:, None] + b2[None, :] - 2.0 * (a @ b.T), min=0.0)
+
+
+def hausdorff(a: torch.Tensor, amask: torch.Tensor, b: torch.Tensor,
+              bmask: torch.Tensor) -> torch.Tensor:
+    """Symmetric Hausdorff distance of two masked clouds: the larger of the
+    two directed maxima of nearest-neighbour distances. Each direction is one
+    exact 1-NN sweep (kernel B1 on CUDA tensors), so ``[N, M]`` is never
+    formed; distances are B1's exact ones, not the matmul identity's."""
+    from pcl_tpu_torch.search import bruteforce
+
+    _, da = bruteforce.nn1(b, bmask, a)
+    _, db = bruteforce.nn1(a, amask, b)
+    da = torch.where(amask, torch.sqrt(da), 0.0)
+    db = torch.where(bmask, torch.sqrt(db), 0.0)
+    return torch.maximum(torch.amax(da), torch.amax(db))

@@ -20,11 +20,14 @@ def identity(dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    T = R.new_zeros(R.shape[:-2] + (4, 4))
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    """``[..., 3, 3]`` and ``[..., 3]`` -> ``[..., 4, 4]``, built without
+    writing in place, so that ``torch.func`` transforms can trace it. The
+    bottom row is made on the device (no copy from the host, which would
+    synchronise the stream on every call)."""
+    t = t.to(R.dtype).expand(R.shape[:-2] + (3,))
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(top.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def invert_rigid(T: torch.Tensor) -> torch.Tensor:

@@ -1,38 +1,33 @@
-"""Registration: what is ported so far, under the JAX package's names."""
+"""Registration, under the JAX package's names (``pcl_tpu.registration``):
+the same ``__all__``, in the same order."""
 
 from pcl_tpu_torch.registration.correspondence import (
     Correspondences,
-    correspondence_normal_shooting,
     determine_correspondences,
     determine_reciprocal_correspondences,
+    correspondence_normal_shooting,
 )
 from pcl_tpu_torch.registration.estimation import (
-    estimate_point_to_plane,
     estimate_svd,
+    estimate_point_to_plane,
     estimate_symmetric_point_to_plane,
     point_to_plane_system,
 )
+from pcl_tpu_torch.registration.icp import ICPResult, icp, align, fitness_score
+from pcl_tpu_torch.registration.ndt import NDTResult, ndt, build_grid
+from pcl_tpu_torch.registration.ndt2d import NDT2DResult, ndt_2d, build_grid_2d
 from pcl_tpu_torch.registration.gicp import GICPResult, gicp, regularized_covariances
+from pcl_tpu_torch.registration.ia import (
+    IAResult, sac_ia, prerejective_ransac, feature_knn,
+)
 from pcl_tpu_torch.registration.graph import (
-    PoseGraphResult,
-    build_edges_from_correspondences,
-    elch_distribute,
-    lum,
+    PoseGraphResult, lum, elch_distribute, build_edges_from_correspondences,
 )
-from pcl_tpu_torch.registration.ia import IAResult, feature_knn, prerejective_ransac, sac_ia
-from pcl_tpu_torch.registration.icp import ICPResult, align, fitness_score, icp
-from pcl_tpu_torch.registration.ndt import NDTResult, build_grid, ndt
+from pcl_tpu_torch.registration.incremental import IncrementalRegistration, MetaRegistration
 from pcl_tpu_torch.registration.trajectory import (
-    ATEResult,
-    RPEResult,
-    make_drift_sequence,
-    odometry_sequence,
-    trajectory_ate,
-    trajectory_rpe,
-    umeyama_se3,
+    ATEResult, RPEResult, trajectory_ate, trajectory_rpe,
+    odometry_sequence, make_drift_sequence, umeyama_se3,
 )
-from pcl_tpu_torch.registration.validation import ValidationResult, validate_euclidean
-from pcl_tpu_torch.registration import rejection
 
 __all__ = [
     "Correspondences",
@@ -45,11 +40,39 @@ __all__ = [
     "point_to_plane_system",
     "ICPResult", "icp", "align", "fitness_score",
     "NDTResult", "ndt", "build_grid",
+    "NDT2DResult", "ndt_2d", "build_grid_2d",
     "GICPResult", "gicp", "regularized_covariances",
-    "ATEResult", "RPEResult", "trajectory_ate", "trajectory_rpe",
-    "odometry_sequence", "make_drift_sequence", "umeyama_se3",
     "IAResult", "sac_ia", "prerejective_ransac", "feature_knn",
     "PoseGraphResult", "lum", "elch_distribute",
     "build_edges_from_correspondences",
-    "ValidationResult", "validate_euclidean", "rejection",
+    "IncrementalRegistration", "MetaRegistration",
+    "ATEResult", "RPEResult", "trajectory_ate", "trajectory_rpe",
+    "odometry_sequence", "make_drift_sequence", "umeyama_se3",
+]
+
+from pcl_tpu_torch.registration.estimation import (  # noqa: E402
+    estimate_dual_quaternion, estimate_2d, estimate_3point, estimate_lm,
+    warp_rigid_6d, warp_rigid_3d, warp_translation,
+)
+from pcl_tpu_torch.registration.fpcs import (  # noqa: E402
+    fpcs_align, kfpcs_align, fpcs4_align, fpcs4_align_host,
+)
+from pcl_tpu_torch.registration.variants import icp_nl, joint_icp  # noqa: E402
+from pcl_tpu_torch.registration.validation import (  # noqa: E402
+    ValidationResult, validate_euclidean,
+)
+from pcl_tpu_torch.registration.pyramid import (  # noqa: E402
+    FeaturePyramid, build_pyramid, compare_pyramids,
+)
+from pcl_tpu_torch.registration.ppf import PPFResult, ppf_register  # noqa: E402
+from pcl_tpu_torch.registration import rejection  # noqa: E402
+
+__all__ += [
+    "estimate_dual_quaternion", "estimate_2d", "estimate_3point", "estimate_lm",
+    "warp_rigid_6d", "warp_rigid_3d", "warp_translation",
+    "fpcs_align", "kfpcs_align", "fpcs4_align", "fpcs4_align_host",
+    "icp_nl", "joint_icp",
+    "ValidationResult", "validate_euclidean",
+    "FeaturePyramid", "build_pyramid", "compare_pyramids",
+    "PPFResult", "ppf_register", "rejection",
 ]

@@ -597,6 +597,77 @@ def test_kinfu_step_on_card_repeats_and_matches_cpu(cuda):
         assert bool(x.lost) == bool(z.lost) is False
 
 
+def _syncs(fn) -> int:
+    """The stream synchronisations ``fn`` makes, as PyTorch's sync debug
+    mode reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in seen)
+
+
+def test_transforms_do_not_synchronise(cuda):
+    """``from_rt``, ``invert_rigid``, ``se3_exp`` and the Levenberg-Marquardt
+    warps and Jacobians run inside every ICP, GICP, NDT, LUM and KinFu
+    iteration: none of them waits for the stream."""
+    from pcl_tpu_torch.core import transforms
+    from pcl_tpu_torch.registration import estimation as est
+
+    xi = torch.tensor([[0.1, -0.2, 0.3, 0.02, -0.01, 0.03], [0.1, 0.0, 0.0, 0.0, 0.0, 0.0]],
+                      device=cuda)
+    p3 = torch.tensor([0.2, -0.1, 0.05], device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T = transforms.se3_exp(xi)
+        transforms.invert_rigid(T)
+        transforms.from_rt(T[0, :3, :3], T[0, :3, 3])
+        est.warp_rigid_6d_quat(xi)
+        est.warp_rigid_3d(p3)
+        est.warp_translation(p3)
+        for warp, p in ((est.warp_rigid_6d, xi[0]), (est.warp_rigid_6d, xi[1]),
+                        (est.warp_rigid_3d, p3), (est.warp_translation, p3),
+                        (est.warp_rigid_6d_quat, xi[0])):
+            est.warp_jacobian(warp, p)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_icp_iterations_synchronise_once_at_most(cuda, monkeypatch):
+    """KinFu's ICP reads nothing back: a step with 1 ICP iteration a level
+    and one with 6 synchronise alike. Point-to-plane ICP reads back one
+    code an iteration and nothing more."""
+    from pcl_tpu_torch.fusion import Intrinsics, kinfu, kinfu_init, kinfu_step, make_volume
+
+    intr = Intrinsics(65.625, 65.625, 39.5, 29.5)
+    poses, depths = _room_frames(2)
+    s = kinfu_init(make_volume(96, 3.0, origin=(-1.5, -1.5, 0.0), device=cuda), 60, 80,
+                   torch.from_numpy(poses[0]).to(cuda))
+    s = kinfu_step(s, torch.from_numpy(depths[0]).to(cuda), intr)
+    d1 = torch.from_numpy(depths[1]).to(cuda)
+    counts = []
+    for n in (1, 6):
+        monkeypatch.setattr(kinfu, "LEVEL_ITERS", (n, n, n))
+        counts.append(_syncs(lambda: kinfu_step(s, d1, intr)))
+    assert counts[0] == counts[1]
+
+    rng = np.random.default_rng(8)
+    xy = rng.uniform(-1, 1, size=(3000, 2)).astype(np.float32)
+    pts = np.column_stack([xy, 0.2 * np.sin(3 * xy[:, 0]) * np.cos(2 * xy[:, 1])])
+    tgt = features.estimate_normals(make_cloud(pts.astype(np.float32), device=cuda), k=12)
+    src = make_cloud((pts + np.float32([0.03, -0.02, 0.01])).astype(np.float32), device=cuda)
+    kw = dict(variant="point_to_plane", abs_mse_eps=0.0, rel_mse_eps=0.0)
+    runs = {n: _syncs(lambda: icp(src, tgt, max_iterations=n, **kw)) for n in (2, 6)}
+    assert runs[6] - runs[2] == 4
+
+
 @pytest.mark.parametrize("mode", ["covariance", "gradient"])
 def test_integral_normals_on_card_match_cpu(cuda, mode):
     """60 x 80, a frame of 1 cm pixels about the origin: normals n.n' >=
@@ -635,3 +706,100 @@ def test_lum_tool_launches_b1(cuda, tmp_path, capsys):
     assert lum_tool.main([*files, "-corr_dist", "0.5", "-max_corr", "256"]) == 0
     assert nn1_mod.nn1.launches == before + 3
     assert "[lum] 3 edges, 3 vertices" in capsys.readouterr().out
+
+
+def _height_pair(n=400, seed=5):
+    """A height field and its rigidly moved copy (both on the CPU)."""
+    rng = np.random.default_rng(seed)
+    pts = np.column_stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                           0.3 * np.sin(rng.uniform(-3, 3, n))]).astype(np.float32)
+    a = 0.8
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]], np.float32)
+    return pts, (pts @ R.T + np.float32([0.4, -0.3, 0.2])).astype(np.float32)
+
+
+def test_fpcs_cores_repeat_bitwise_on_card(cuda):
+    """Two runs of each batched FPCS core on the same draws: the same
+    transform and error, bit for bit (B1's sweep and the stable sorts are
+    deterministic), and the best hypothesis is a live one. The congruence
+    tolerance is 0.1 m, half the pair's point spacing, with 32 target pairs
+    a base: on this pair ten CPU draws gave 50-70 valid FPCS hypotheses of
+    2,048 and 100-250 valid 4PCS ones of 512 (at 0.05 m and 8 pairs, 0-6
+    FPCS ones)."""
+    from pcl_tpu_torch.registration import fpcs
+
+    src, dst = (make_cloud(p, device=cuda) for p in _height_pair())
+    g = torch.Generator(device=cuda).manual_seed(3)
+    d3 = fpcs.draw_fpcs_samples(src.mask, dst.mask, 64, 256, 32, 256, g)
+    d4 = fpcs.draw_fpcs4_samples(src.mask, dst.mask, 32, 192, 256, g)
+    for run in (lambda: fpcs.fpcs_core(src, dst, *d3, delta=0.1),
+                lambda: fpcs.fpcs4_core(src, dst, *d4, delta=0.1, pairs_per_base=128,
+                                        n_hyp=512)):
+        before = nn1_mod.nn1.launches
+        a, b = run(), run()
+        assert nn1_mod.nn1.launches == before + 2
+        assert bool(a.valid)
+        assert torch.equal(a.transform, b.transform) and torch.equal(a.error, b.error)
+
+
+def test_hausdorff_launches_b1_twice(cuda):
+    from pcl_tpu_torch.core.geometry import hausdorff
+
+    a, b = _height_pair(3000)
+    am = np.arange(3000) % 7 != 0
+    before = nn1_mod.nn1.launches
+    h_card = hausdorff(*(torch.from_numpy(x).to(cuda) for x in (a, am, b, np.ones(3000, bool))))
+    assert nn1_mod.nn1.launches == before + 2
+    h_cpu = hausdorff(*(torch.from_numpy(x) for x in (a, am, b, np.ones(3000, bool))))
+    assert float(h_card) == float(h_cpu)                  # the plain version's contract
+
+
+def test_fpcs4_align_host_launches_b1_per_matched_base(cuda, monkeypatch):
+    """B1 once for each base whose two diagonals both have target pairs
+    within 2 delta, and once more for the scoring; the result equals the
+    CPU run's."""
+    from pcl_tpu_torch.registration import fpcs
+
+    pts, dst = _height_pair()
+    pts, dst = pts[:150], dst[:150]
+    bases = []
+    real = fpcs._host_base
+
+    def spy(*a):
+        out = real(*a)
+        bases.append(out)
+        return out
+
+    monkeypatch.setattr(fpcs, "_host_base", spy)
+    kw = dict(delta=0.05, overlap=0.9, n_bases=8, n_eval=128, seed=0)
+    before = nn1_mod.nn1.launches
+    res = fpcs.fpcs4_align_host(make_cloud(pts, device=cuda), make_cloud(dst, device=cuda), **kw)
+    launches = nn1_mod.nn1.launches - before
+    plen = np.linalg.norm(dst[:, None].astype(np.float64) - dst[None], axis=-1)
+    np.fill_diagonal(plen, np.inf)
+    matched = sum(1 for b in bases if b is not None and all(
+        (np.abs(plen - np.linalg.norm(q - p)) < 0.1).any() for p, q in ((b[0], b[1]), (b[2], b[3]))))
+    assert matched >= 1 and launches == matched + 1
+    bases.clear()
+    cpu = fpcs.fpcs4_align_host(make_cloud(pts, device="cpu"), make_cloud(dst, device="cpu"), **kw)
+    assert bool(res.valid) == bool(cpu.valid)
+    assert float((res.transform.cpu() - cpu.transform).abs().max()) <= 1e-5
+
+
+def test_ndt_2d_on_card_matches_cpu(cuda):
+    """Two Newton iterations at one level: the parameters to 1e-5 (the
+    score's sums and the grid's segment sums round alike up to order)."""
+    from pcl_tpu_torch.registration.ndt2d import ndt_2d
+
+    rng = np.random.default_rng(42)
+    t = rng.uniform(0, 4, 750).astype(np.float32)
+    xy = np.concatenate([np.stack([t, np.zeros_like(t)], 1), np.stack([np.zeros_like(t), t], 1)])
+    xy += rng.normal(scale=0.01, size=xy.shape).astype(np.float32)
+    c, s = np.cos(0.08), np.sin(0.08)
+    src_xy = (xy - np.float32([0.15, -0.1])) @ np.array([[c, -s], [s, c]], np.float32)
+    z = np.zeros((len(xy), 1), np.float32)
+    src, tgt = np.concatenate([src_xy, z], 1), np.concatenate([xy, z], 1)
+    out = [ndt_2d(make_cloud(src, device=d), make_cloud(tgt, device=d), grid_extent=0.8,
+                  max_iterations=2, levels=1) for d in (cuda, "cpu")]
+    np.testing.assert_allclose(out[0].params.cpu().numpy(), out[1].params.numpy(), atol=1e-5)
+    assert int(out[0].iterations) == int(out[1].iterations)

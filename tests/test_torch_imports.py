@@ -70,8 +70,22 @@ def test_new_modules_are_covered():
                  "tools/sac_segmentation_plane.py", "registration/graph.py",
                  "registration/graph_optimizer.py", "features/integral_normals.py",
                  "filters/convolution.py", "fusion/__init__.py", "fusion/tsdf.py",
-                 "fusion/kinfu.py", "fusion/world_model.py", "tools/lum.py", "tools/elch.py"):
+                 "fusion/kinfu.py", "fusion/world_model.py", "tools/lum.py", "tools/elch.py",
+                 "registration/variants.py", "registration/incremental.py",
+                 "registration/ndt2d.py", "registration/pyramid.py", "registration/fpcs.py",
+                 "registration/ppf.py", "keypoints/__init__.py", "keypoints/iss.py",
+                 "tools/compute_hausdorff.py", "tools/ndt2d.py", "tools/icp2d.py",
+                 "tools/iterative_closest_point.py", "tools/compute_cloud_error.py"):
         assert f"pcl_tpu_torch/{must}" in names
+
+
+def test_registration_exports_the_jax_names():
+    """``pcl_tpu_torch.registration`` exports what ``pcl_tpu.registration``
+    exports, under the same names and in the same order."""
+    jax_all = importlib.import_module("pcl_tpu.registration").__all__
+    port = importlib.import_module("pcl_tpu_torch.registration")
+    assert port.__all__ == jax_all
+    assert all(hasattr(port, name) for name in jax_all)
 
 
 def test_scan_sees_forbidden_imports(tmp_path):

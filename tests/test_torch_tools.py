@@ -20,6 +20,11 @@ from pcl_tpu.tools import odometry as j_odometry
 from pcl_tpu.tools import sac_segmentation as j_sacseg
 from pcl_tpu.tools import sac_segmentation_plane as j_sacplane
 from pcl_tpu.tools import voxel_grid as j_voxel_grid
+from pcl_tpu.tools import compute_cloud_error as j_cloud_error
+from pcl_tpu.tools import compute_hausdorff as j_hausdorff
+from pcl_tpu.tools import icp2d as j_icp2d
+from pcl_tpu.tools import iterative_closest_point as j_iter_icp
+from pcl_tpu.tools import ndt2d as j_ndt2d
 
 from pcl_tpu_torch import io as tio
 from pcl_tpu_torch.core.cloud import make_cloud, to_numpy
@@ -34,6 +39,11 @@ from pcl_tpu_torch.tools import odometry as t_odometry
 from pcl_tpu_torch.tools import sac_segmentation as t_sacseg
 from pcl_tpu_torch.tools import sac_segmentation_plane as t_sacplane
 from pcl_tpu_torch.tools import voxel_grid as t_voxel_grid
+from pcl_tpu_torch.tools import compute_cloud_error as t_cloud_error
+from pcl_tpu_torch.tools import compute_hausdorff as t_hausdorff
+from pcl_tpu_torch.tools import icp2d as t_icp2d
+from pcl_tpu_torch.tools import iterative_closest_point as t_iter_icp
+from pcl_tpu_torch.tools import ndt2d as t_ndt2d
 
 CPU = ["--device", "cpu"]
 
@@ -323,7 +333,8 @@ def test_sac_segmentation_plane_tool(scans, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("tool", [t_voxel_grid, t_normals, t_icp, t_ndt3d, t_odometry, t_fpfh,
-                                  t_sacseg, t_sacplane, t_lum, t_elch],
+                                  t_sacseg, t_sacplane, t_lum, t_elch, t_hausdorff, t_ndt2d,
+                                  t_icp2d, t_iter_icp, t_cloud_error],
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     """No silent move to the CPU: without a card and without --device cpu the
@@ -331,11 +342,116 @@ def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     files = scans[0]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = {t_odometry: files[:2]}.get(tool, [files[0], str(tmp_path / "o.pcd")])
-    if tool in (t_icp, t_ndt3d):
+    if tool in (t_icp, t_ndt3d, t_hausdorff, t_ndt2d, t_iter_icp, t_cloud_error):
         argv = files[:2]
+    if tool is t_icp2d:
+        argv = [*files[:2], str(tmp_path / "o.pcd")]
     if tool in (t_lum, t_elch):
         argv = files
     if tool is t_sacseg:
         argv = files[:1]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(argv)
+
+
+def _numbers(text):
+    import re
+    return [float(v) for v in re.findall(r"-?\d+\.\d+(?:e-?\d+)?", text)]
+
+
+def test_compute_hausdorff_tool(scans, capsys):
+    """B1's exact distances against the matmul identity's (ROADMAP C1): the
+    printed value to 1e-5 m."""
+    files = scans[0]
+    assert t_hausdorff.main([*files[:2], *CPU]) == 0
+    out_t = capsys.readouterr().out
+    assert j_hausdorff.main(files[:2]) == 0
+    out_j = capsys.readouterr().out
+    assert out_t.startswith("[compute_hausdorff] ")
+    assert _numbers(out_t)[0] == pytest.approx(_numbers(out_j)[0], abs=1e-5)
+
+
+def test_compute_cloud_error_tool(scans, capsys):
+    files = scans[0]
+    args = [*files[:2], "-correspondence", "nn"]
+    assert t_cloud_error.main([*args, *CPU]) == 0
+    out_t = capsys.readouterr().out
+    assert j_cloud_error.main(args) == 0
+    out_j = capsys.readouterr().out
+    assert out_t.split()[:2] == out_j.split()[:2]            # the tag and n=
+    np.testing.assert_allclose(_numbers(out_t), _numbers(out_j), atol=2e-6)
+
+
+def test_compute_cloud_error_tool_by_index(scans, capsys):
+    """The JAX tool's index mode writes into a read-only view of a JAX array
+    and raises (ROADMAP C34); the port's is held to numpy."""
+    files = scans[0]
+    assert t_cloud_error.main([*files[:2], "-correspondence", "index", *CPU]) == 0
+    got = _numbers(capsys.readouterr().out)
+    a, b = (_xyz(f)[0].astype(np.float64) for f in files[:2])
+    d = np.linalg.norm(a - b, axis=1)
+    want = [np.sqrt((d ** 2).mean()), d.mean(), np.median(d), d.max()]
+    np.testing.assert_allclose(got, want, atol=2e-6)
+    with pytest.raises(ValueError, match="read-only"):
+        j_cloud_error.main([*files[:2], "-correspondence", "index"])
+
+
+def test_iterative_closest_point_tool(scans, capsys, tmp_path):
+    files = scans[0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    args = [*files[1::-1], "-iters", "30", "-dist", "0.5"]
+    assert t_iter_icp.main([args[0], args[1], out_t, *args[2:], *CPU]) == 0
+    text_t = capsys.readouterr().out
+    assert j_iter_icp.main([args[0], args[1], out_j, *args[2:]]) == 0
+    text_j = capsys.readouterr().out
+    assert text_t.splitlines()[0].startswith("[iterative_closest_point] converged=True")
+    np.testing.assert_allclose(_numbers("\n".join(text_t.splitlines()[1:])),
+                               _numbers("\n".join(text_j.splitlines()[1:])), atol=1e-3)
+    np.testing.assert_allclose(_xyz(out_t)[0], _xyz(out_j)[0], atol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def planar(tmp_path_factory):
+    """Two laser scans of a room's walls in the xy plane (z = 0), the second
+    moved by (0.15, -0.1) m and 0.08 rad, as PCD files."""
+    root = tmp_path_factory.mktemp("planar")
+    rng = np.random.default_rng(42)
+    t = rng.uniform(0, 4, 400).astype(np.float32)
+    pts = np.concatenate([np.stack([t, np.zeros_like(t)], 1), np.stack([np.zeros_like(t), t], 1),
+                          np.stack([t, np.full_like(t, 4.0)], 1)])
+    pts += rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
+    c, s = np.cos(0.08), np.sin(0.08)
+    src = (pts - np.float32([0.15, -0.1])) @ np.array([[c, -s], [s, c]], np.float32)
+    files = []
+    for name, xy in (("src", src), ("tgt", pts)):
+        xyz = np.concatenate([xy, np.zeros((len(xy), 1), np.float32)], 1).astype(np.float32)
+        files.append(str(root / f"{name}.pcd"))
+        tio.save(files[-1], make_cloud(xyz, device="cpu"))
+    return files
+
+
+def test_ndt2d_tool(planar, capsys, tmp_path):
+    """The same parameters to 5e-3 (ROADMAP C33: Newton zigzags at the
+    coarsest level) and converged alike; the moved source is written."""
+    out = str(tmp_path / "aligned.pcd")
+    assert t_ndt2d.main([*planar, out, "-grid", "0.8", "-iters", "30", *CPU]) == 0
+    text_t = capsys.readouterr().out.splitlines()
+    assert j_ndt2d.main([*planar, "-grid", "0.8", "-iters", "30"]) == 0
+    text_j = capsys.readouterr().out.splitlines()
+    assert text_t[0].split()[:2] == text_j[0].split()[:2] == ["[ndt2d]", "converged=True"]
+    np.testing.assert_allclose(_numbers(text_t[1]), _numbers(text_j[1]), atol=5e-3)
+    np.testing.assert_allclose(_numbers(text_t[1]), [0.15, -0.1, 0.08], atol=0.02)
+    assert _xyz(out)[0].shape == (1200, 3)
+
+
+def test_icp2d_tool(planar, capsys, tmp_path):
+    """B1 in place of the kd-tree: the printed pose to 1e-3 (the last digit
+    printed) and the written clouds to 1e-3 m."""
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    assert t_icp2d.main([*planar, out_t, *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_icp2d.main([*planar, out_j]) == 0
+    line_j = capsys.readouterr().out
+    assert line_t.startswith("[icp2d] t=(")
+    np.testing.assert_allclose(_numbers(line_t), _numbers(line_j), atol=1e-3)
+    np.testing.assert_allclose(_xyz(out_t)[0], _xyz(out_j)[0], atol=1e-3)
