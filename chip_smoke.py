@@ -88,7 +88,23 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    raw scans (two 120k x 120k B1 sweeps), equal with B1's plain version; (k)
    the pyramid match of the scans' FPFH; B1 against its plain version at
    (a)'s shape, timed; the aligners on the card against the CPU on
-   2,048-voxel subclouds with the same draws.
+   2,048-voxel subclouds with the same draws;
+11. path I, the sharded functions (parallel/) at full width: (a) one rank
+   under NCCL in this process runs sharded ICP on path A's pair (brute, B1)
+   and on path C's pair (point-to-plane, cell list), sharded GICP on path D's
+   downsampled pair (B1), sharded NDT on path D's pair from its prior (B2
+   once, the grid), sharded LUM on path F's KITTI-size graph and sharded
+   TSDF integrate, raycast and shift over path G's 512^3 volume and first
+   frames, each against its path's limit and the single-device function;
+   (b) I_RANKS ranks sharing the card under gloo (processes of this script)
+   run the same calls and are held to (a): poses within I_POSE_TOL, TSDF
+   slabs and the evicted slab bitwise, raycast hits equal; ms per iteration
+   or frame, collectives, bytes and launches per rank printed;
+12. path J, the filter front end on path C's six scans: crop box, statistical
+   and radius outlier removal, progressive morphological ground removal,
+   then voxel_downsample (B2), normals and odometry; scan 0's masks against
+   the CPU run and its ground against the street's; approximate_voxel_grid,
+   farthest-point sampling and grid_minimum timed.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
@@ -311,6 +327,23 @@ G_INVALID = 0.005                  # share of pixels dropped
 G_FAR = 4.0
 G_ATE_LIMIT = 0.0036               # 1.5 x the 0.00241 m measured on the H100 (planned: 0.02 m)
 G_MAX_POINTS = 1 << 22
+# path I: the sharded functions (parallel/) on one card: one rank under NCCL in
+# this process, then I_RANKS ranks sharing the card under gloo, each a process
+# of this script (``--path-i-rank``), joined within I_JOIN_S seconds
+I_RANKS = 2
+I_JOIN_S = 60                      # the ranks took 19-24 s (NVIDIA H100 80GB HBM3, 700 W)
+I_FRAMES = 4                       # path G's first frames, fused at their true poses
+I_GICP_ITERS = 20                  # sharded_gicp's default: no convergence test
+I_POSE_TOL = 1e-4                  # m and rad: two ranks against one, float32 sums
+# path J: the filter front end on path C's scans, PCL's tutorial settings
+J_BOX = 20.0                       # half side of the crop box about the sensor (m)
+J_SOR = dict(mean_k=50, stddev_mult=1.0)
+J_ROR = dict(radius=0.8, min_neighbors=2)
+J_PMF = dict(cell_size=1.0, max_window_size=20, slope=1.0, initial_distance=0.5,
+             max_distance=3.0)
+J_FPS = 4096
+# the street's up axis is y; the morphological filters take z as up
+J_UP = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
 
 
 def card_line() -> str:
@@ -376,39 +409,48 @@ def nn1_bound_ms(nq: int, m: int):
     return (ops_s, "operations") if ops_s >= bytes_s else (bytes_s, "bytes")
 
 
+def nn1_against_plain(nn1_mod, name, t, m, q, slices=None, plain_rows=None, tag="phase 1"):
+    """B1 against its plain version on ``(t, m, q)`` (arrays or tensors) on
+    the card; fails on a differing +inf, an index that is not a near-tie, or
+    a distance beyond float32 rounding. Returns the largest distance error
+    and the inputs as card tensors."""
+    t, m, q = (torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a)
+               .cuda().contiguous() for a in (t, m, q))
+    ik, dk = nn1_mod.nn1(t, m, q, slices=slices)
+    if plain_rows is not None:
+        # the plain version on the first rows only (its time grows as Q M)
+        q, ik, dk = q[:plain_rows], ik[:plain_rows], dk[:plain_rows]
+    ip, dp = nn1_mod.nn1_plain(t, m, q)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isfinite(dk), torch.isfinite(dp)), f"{name}: +inf differs")
+    fin = torch.isfinite(dk)
+    err = float((dk[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
+    miss = ik != ip
+    n_miss = int(miss.sum())
+    # the plain version repeats the kernel's float32 arithmetic, so the
+    # two agree bit for bit but for double-rounding in its float64
+    # emulation of the FMA: a differing winner must be a near-tie
+    if n_miss:
+        qq, tk, tp = q[miss], t[ik[miss].long()], t[ip[miss].long()]
+        scale = (qq * qq).sum(1) + (tk * tk).sum(1) + (tp * tp).sum(1)
+        check(bool(((dk[miss] - dp[miss]).abs() <= 1e-6 * scale).all()),
+              f"{name}: kernel and plain disagree beyond a near-tie")
+    check(n_miss <= 1e-5 * len(q), f"{name}: {n_miss} differing indices")
+    # tolerance: 1e-6 of the squared distance scale (float32 rounding)
+    check(err <= 1e-6 * max(1.0, float(dp[fin].abs().max()) if bool(fin.any()) else 1.0),
+          f"{name}: d2 differs by {err}")
+    print(f"{tag}: nn1 {name}: Q={len(q)} M={len(t)} differing indices {n_miss} "
+          f"max |d2 kernel - plain| {err:.3e}", flush=True)
+    return err, (t, m, q)
+
+
 def phase1_nn1(nn1_mod, moved, tgt):
     """Kernel against plain on the card; returns the kernel's record."""
     rng = np.random.default_rng(1)
     dev = "cuda"
 
     def case(name, t, m, q, slices=None, plain_rows=None):
-        t, m, q = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (t, m, q))
-        ik, dk = nn1_mod.nn1(t, m, q, slices=slices)
-        if plain_rows is not None:
-            # the plain version on the first rows only (its time grows as Q M)
-            q, ik, dk = q[:plain_rows], ik[:plain_rows], dk[:plain_rows]
-        ip, dp = nn1_mod.nn1_plain(t, m, q)
-        torch.cuda.synchronize()
-        check(torch.equal(torch.isfinite(dk), torch.isfinite(dp)), f"{name}: +inf differs")
-        fin = torch.isfinite(dk)
-        err = float((dk[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
-        miss = ik != ip
-        n_miss = int(miss.sum())
-        # the plain version repeats the kernel's float32 arithmetic, so the
-        # two agree bit for bit but for double-rounding in its float64
-        # emulation of the FMA: a differing winner must be a near-tie
-        if n_miss:
-            qq, tk, tp = q[miss], t[ik[miss].long()], t[ip[miss].long()]
-            scale = (qq * qq).sum(1) + (tk * tk).sum(1) + (tp * tp).sum(1)
-            check(bool(((dk[miss] - dp[miss]).abs() <= 1e-6 * scale).all()),
-                  f"{name}: kernel and plain disagree beyond a near-tie")
-        check(n_miss <= 1e-5 * len(q), f"{name}: {n_miss} differing indices")
-        # tolerance: 1e-6 of the squared distance scale (float32 rounding)
-        check(err <= 1e-6 * max(1.0, float(dp[fin].abs().max()) if bool(fin.any()) else 1.0),
-              f"{name}: d2 differs by {err}")
-        print(f"phase 1: nn1 {name}: Q={len(q)} M={len(t)} differing indices {n_miss} "
-              f"max |d2 kernel - plain| {err:.3e}", flush=True)
-        return err, (t, m, q)
+        return nn1_against_plain(nn1_mod, name, t, m, q, slices=slices, plain_rows=plain_rows)
 
     def pts(n, lo=-5.0, hi=5.0):
         return rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
@@ -2675,10 +2717,585 @@ def phase10_path_h(segsum, nn1_mod, street, alley_scene, c_scans, c_golden, reco
     return parts
 
 
+def path_i_inputs(scans, golden, src, tgt):
+    """Path I's inputs as host arrays, the same for every rank: path A's
+    120k pair; path C's pair 1 -> 0 (downsampled, normals); path D's
+    downsampled pair 1 -> 0 (the voxels only) and its NDT target, the raw scan
+    0, with pair 1's prior; path F (e)'s graph; path G's first frames."""
+    from scipy.spatial.transform import Rotation
+
+    from pcl_tpu_torch import features, filters
+    from pcl_tpu_torch.core.cloud import compact, from_numpy
+
+    d = {"a/src": src, "a/tgt": tgt}
+    raw = [from_numpy(s, capacity=SCAN_CAPACITY) for s in scans[:2]]
+    ds = [filters.voxel_downsample(c, LEAF) for c in raw]
+    nc = [features.estimate_normals(c, k=NORMAL_K) for c in ds]
+    for name, c in (("src", nc[1]), ("tgt", nc[0])):
+        d[f"c/{name}"], d[f"c/{name}_mask"] = c.xyz.cpu().numpy(), c.mask.cpu().numpy()
+    d["c/tgt_normals"] = nc[0].attrs["normal"].cpu().numpy()
+    for name, c in (("src", ds[1]), ("tgt", ds[0])):
+        n = int(c.mask.sum())
+        d[f"d/{name}"] = compact(c).xyz[:n].cpu().numpy()
+    d["d/ndt_tgt"] = scans[0]
+    d["step"] = np.linalg.inv(golden[0]) @ golden[1]
+    # pair 1's prior as path D draws it (NDT_PRIOR_ERROR, seed 6)
+    prior_rng = np.random.default_rng(6)
+    off = np.eye(4)
+    dd = np.append(prior_rng.normal(size=2), 0.0)
+    axis = prior_rng.normal(size=3)
+    off[:3, 3] = dd * NDT_PRIOR_ERROR[0] / np.linalg.norm(dd)
+    off[:3, :3] = Rotation.from_rotvec(axis * NDT_PRIOR_ERROR[1] / np.linalg.norm(axis)).as_matrix()
+    d["d/prior"] = (off @ d["step"]).astype(np.float32)
+    G, init, edges = kitti_graph(F_KITTI_V, F_KITTI_LOOPS, F_KITTI_C, F_SEED)
+    d["f/golden"], d["f/init"] = G, init
+    for k, e in zip(("es", "ed", "cs", "cd", "cv"), edges):
+        d[f"f/{k}"] = e.cpu().numpy()
+    from pcl_tpu_torch.fusion import Intrinsics
+    intr = Intrinsics(*G_INTR)
+    rng = np.random.default_rng(G_SEED)
+    poses = handheld(rng, G_FRAMES)[:I_FRAMES]
+    d["g/poses"] = poses.astype(np.float32)
+    d["g/frames"] = np.stack([render_depth(P, intr, *G_SHAPE, rng)[0] for P in poses])
+    return d
+
+
+def path_i_run(mesh, d, tag):
+    """Path I's calls on ``mesh``, every rank alike: returns the outputs (host
+    arrays; TSDF slabs as digests of their bytes) and, per call, the seconds,
+    the iterations (frames for TSDF), the collectives and their bytes, and the
+    B1 and B2 launches of this rank."""
+    from pcl_tpu_torch.fusion import Intrinsics, WorldModel, make_volume
+    from pcl_tpu_torch.ops import nn1 as nn1_mod
+    from pcl_tpu_torch.ops import segsum
+    from pcl_tpu_torch.parallel import (sharded_gicp, sharded_icp, sharded_lum,
+                                        sharded_ndt)
+    from pcl_tpu_torch.parallel.tsdf_sharded import (integrate_sharded, raycast_sharded,
+                                                     shift_sharded)
+
+    dev = mesh.device
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in d.items()}
+    out, stats = {}, {}
+
+    def ones(x):
+        return torch.ones(len(x), dtype=torch.bool, device=dev)
+
+
+    def call(name, fn, n):
+        mesh.counts.clear()
+        b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+        r, secs = timed(fn)
+        stats[name] = {"s": secs, "n": n, "b1": nn1_mod.nn1.launches - b1,
+                       "b2": segsum.segment_sum_sorted.launches - b2,
+                       "collectives": {k: list(v) for k, v in mesh.counts.items()}}
+        c = stats[name]
+        print(f"{tag}: {name}: {secs * 1e3:.1f} ms, {secs * 1e3 / n:.3f} ms per "
+              f"{'frame' if name == 'tsdf' else 'iteration'} ({n}); collectives "
+              + ", ".join(f"{k} {v[0]} ({v[1]} B)" for k, v in c["collectives"].items())
+              + f"; B1 {c['b1']}, B2 {c['b2']}", flush=True)
+        return r
+
+    T, _, _ = call("icp A", lambda: sharded_icp(mesh, t["a/src"], ones(t["a/src"]), t["a/tgt"],
+                                                ones(t["a/tgt"]), max_iterations=30), 30)
+    out["icp A"] = T.cpu().numpy()
+    T, _, _ = call("icp C", lambda: sharded_icp(
+        mesh, t["c/src"], t["c/src_mask"], t["c/tgt"], t["c/tgt_mask"],
+        tgt_normals=t["c/tgt_normals"], max_corr_dist=ICP_KW["max_corr_dist"],
+        max_iterations=ICP_KW["max_iterations"], variant="point_to_plane",
+        corr_backend="cell", cell_cap=ICP_KW["cell_cap"]), ICP_KW["max_iterations"])
+    out["icp C"] = T.cpu().numpy()
+    T, _, _ = call("gicp D", lambda: sharded_gicp(
+        mesh, t["d/src"], ones(t["d/src"]), t["d/tgt"], ones(t["d/tgt"]),
+        max_corr_dist=GICP_KW["max_corr_dist"], max_iterations=I_GICP_ITERS,
+        k_covariances=GICP_K), I_GICP_ITERS)
+    out["gicp D"] = T.cpu().numpy()
+    holder = {}
+
+    def run_ndt():
+        holder["r"] = sharded_ndt(mesh, t["d/src"], ones(t["d/src"]), t["d/ndt_tgt"],
+                                  ones(t["d/ndt_tgt"]), init_transform=t["d/prior"], **NDT_KW)
+        return holder["r"]
+
+    T, _, it = call("ndt D", run_ndt, 1)
+    stats["ndt D"]["n"] = int(it)
+    out["ndt D"] = T.cpu().numpy()
+    edges = [t[f"f/{k}"] for k in ("es", "ed", "cs", "cd", "cv")]
+    r = call("lum F", lambda: sharded_lum(mesh, t["f/init"], *edges,
+                                          max_iterations=F_KITTI_ITERS),
+             F_KITTI_ITERS * 48)
+    out["lum F"] = r.poses.cpu().numpy()
+    out["lum F golden"] = sharded_lum(mesh, t["f/golden"].float(), *edges,
+                                      max_iterations=2).poses.cpu().numpy()
+
+    intr = Intrinsics(*G_INTR)
+    H, W = G_SHAPE
+
+    def fuse():
+        vol = make_volume(G_RES, G_SIZE, origin=G_ORIGIN, device=dev)
+        for k in range(I_FRAMES):
+            vol = integrate_sharded(mesh, vol, t["g/frames"][k], intr, t["g/poses"][k])
+        return vol
+
+    vol = call("tsdf", fuse, I_FRAMES)
+    out["slab"] = np.asarray([digest(vol.tsdf), digest(vol.weight)])
+    pose = t["g/poses"][-1]
+    verts, nrm, hit = call("raycast", lambda: raycast_sharded(mesh, vol, intr, pose, H, W), 1)
+    out.update({"verts": verts.cpu().numpy(), "normals": nrm.cpu().numpy(),
+                "hit": hit.cpu().numpy()})
+    vol2, ev_t, ev_w, ev_origin = call("shift", lambda: shift_sharded(mesh, vol), 1)
+    wm = WorldModel(float(vol.voxel_size), world_origin=vol.origin.cpu().numpy())
+    wm.push_slab(float(ev_origin[0]), ev_t, ev_w)
+    back_t, back_w = wm.fetch_slab(float(ev_origin[0]), tuple(ev_t.shape))
+    out["world model"] = np.asarray(bool(np.array_equal(back_t, ev_t.cpu().numpy())
+                                         and np.array_equal(back_w, ev_w.cpu().numpy())))
+    out["evicted"] = np.asarray([digest(ev_t), digest(ev_w)])
+    out["shifted"] = np.asarray([digest(vol2.tsdf), digest(vol2.weight)])
+    return out, stats, vol
+
+
+def path_i_warmup(mesh, d):
+    """Each sharded function once on small inputs (libraries, the NCCL
+    communicator, the allocator), outside the counts."""
+    from pcl_tpu_torch.parallel import sharded_gicp, sharded_icp, sharded_lum, sharded_ndt
+
+    dev = mesh.device
+    a = torch.from_numpy(d["d/src"][:4096]).to(dev)
+    b = torch.from_numpy(d["d/tgt"][:4096]).to(dev)
+    m = torch.ones(len(a), dtype=torch.bool, device=dev)
+    sharded_icp(mesh, a, m, b, m, max_iterations=2)
+    sharded_gicp(mesh, a, m, b, m, max_corr_dist=1.0, max_iterations=2)
+    sharded_ndt(mesh, a, m, b, m, max_iterations=2, **{"resolution": 2.0})
+    e = [torch.from_numpy(d[f"f/{k}"][:64]).to(dev) for k in ("es", "ed", "cs", "cd", "cv")]
+    sharded_lum(mesh, torch.from_numpy(d["f/init"]).to(dev), *e, max_iterations=1,
+                cg_iters=2)
+    torch.cuda.synchronize()
+
+
+def path_i_rank(rank: int, workdir: str) -> int:
+    """One of the I_RANKS processes of path I (b): ranks that share the card
+    join under gloo, run path I's calls and save their outputs."""
+    import torch.distributed as dist
+
+    from pcl_tpu_torch.parallel import make_mesh, runtime
+
+    runtime.initialize_multihost(init_method=f"file://{workdir}/store",
+                                 num_processes=I_RANKS, process_id=rank)
+    mesh = make_mesh()
+    check(mesh.backend == "gloo" and mesh.device.type == "cuda",
+          f"rank {rank}: backend {mesh.backend} on {mesh.device}")
+    d = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    path_i_warmup(mesh, d)
+    out, stats, _ = path_i_run(mesh, d, f"phase 11 (b) rank {rank}")
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def tsdf_gap_voxels(vol_a, vol_b, d, intr):
+    """Voxels where two fused volumes differ, and how many of them lie
+    within 1e-4 pixel of a half pixel or within 1e-6 m of the truncation
+    band's edge in some frame (ROADMAP C27), in float64."""
+    diff = (vol_a.tsdf != vol_b.tsdf) | (vol_a.weight != vol_b.weight)
+    idx = torch.nonzero(diff.reshape(-1))[:, 0].cpu().numpy()
+    R = vol_a.tsdf.shape[0]
+    g = np.stack([idx // (R * R), (idx // R) % R, idx % R], 1).astype(np.float64)
+    world = np.asarray(G_ORIGIN) + (g + 0.5) * (G_SIZE / R)
+    trunc = float(vol_a.trunc)
+    excused = np.zeros(len(idx), bool)
+    for P, depth in zip(d["g/poses"].astype(np.float64), d["g/frames"]):
+        w2c = np.linalg.inv(P)
+        c = world @ w2c[:3, :3].T + w2c[:3, 3]
+        z = np.maximum(c[:, 2], 1e-9)
+        u = intr.fx * c[:, 0] / z + intr.cx
+        v = intr.fy * c[:, 1] / z + intr.cy
+        half = lambda a: np.abs(a - np.floor(a) - 0.5) < 1e-4  # noqa: E731
+        ui = np.clip(np.round(u), 0, depth.shape[1] - 1).astype(int)
+        vi = np.clip(np.round(v), 0, depth.shape[0] - 1).astype(int)
+        band = np.abs(depth[vi, ui] - c[:, 2] + trunc) < 1e-6
+        excused |= half(u) | half(v) | band
+    return len(idx), int(excused.sum())
+
+
+def phase11_path_i(segsum, nn1_mod, scans, golden, src, tgt, M, record_b1, record_b2):
+    """Path I: the sharded functions at full width on one card, (a) one rank
+    under NCCL in this process against the single-device functions, (b)
+    I_RANKS ranks sharing the card under gloo against (a)."""
+    import torch.distributed as dist
+
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.core.transforms import transform_points
+    from pcl_tpu_torch.fusion import Intrinsics, integrate, make_volume, raycast
+    from pcl_tpu_torch.parallel import make_mesh
+    from pcl_tpu_torch.registration import trajectory
+    from pcl_tpu_torch.registration.gicp import gicp
+    from pcl_tpu_torch.registration.graph import lum
+    from pcl_tpu_torch.registration.icp import icp
+    from pcl_tpu_torch.registration.ndt import ndt
+    from pcl_tpu_torch.tools import odometry as odometry_tool
+
+    d, secs = timed(lambda: path_i_inputs(scans, golden, src, tgt))
+    print(f"phase 11: path I inputs in {secs:.1f} s: path C pair {int(d['c/src_mask'].sum())} / "
+          f"{int(d['c/tgt_mask'].sum())} voxels, path D pair {len(d['d/src'])} / "
+          f"{len(d['d/tgt'])}, LUM V={F_KITTI_V} E={len(d['f/es'])}, {I_FRAMES} VGA frames",
+          flush=True)
+    check(not dist.is_initialized(), "a process group exists before path I")
+    mesh = make_mesh()
+    check(mesh.backend == "nccl" and mesh.shape == {"points": 1},
+          f"one rank: backend {mesh.backend}, mesh {mesh.shape}")
+    path_i_warmup(mesh, d)
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    out_a, stats_a, vol_a = path_i_run(mesh, d, "phase 11 (a) NCCL, one rank")
+    record_b1["launches_by_path"]["I"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"]["I"] = segsum.segment_sum_sorted.launches
+    print(f"phase 11: (a) launches B1 {nn1_mod.nn1.launches}, B2 "
+          f"{segsum.segment_sum_sorted.launches} [{card_line()}]", flush=True)
+    # B1 once an iteration behind the brute correspondences (path C's ICP takes
+    # the cell list), B2 once for NDT's grid
+    check(stats_a["icp A"]["b1"] == 30 and stats_a["gicp D"]["b1"] == I_GICP_ITERS
+          and stats_a["ndt D"]["b2"] == 1,
+          "(a) launches: " + ", ".join(f"{k} B1 {v['b1']} B2 {v['b2']}"
+                                        for k, v in stats_a.items()))
+    check(stats_a["icp A"]["collectives"]["psum"] == [30, 30 * 18 * 4],
+          "(a) icp A: not one 18-float all-reduce an iteration")
+
+    # (a) against the single-device functions on the same inputs
+    dev = torch.device("cuda")
+    ref = {}
+
+    def single(name, fn, n_of):
+        r, secs = timed(fn)
+        n = n_of(r)
+        ref[name] = r
+        print(f"phase 11: single-device {name}: {secs * 1e3:.1f} ms, {secs * 1e3 / n:.3f} ms per "
+              f"{'frame' if name == 'tsdf' else 'iteration'} ({n})", flush=True)
+        return r
+
+    def cl(k, m=None):
+        return make_cloud(d[k], None if m is None else d[m])
+
+    sa, ta = cl("a/src"), cl("a/tgt")
+    single("icp A", lambda: icp(sa, ta, max_iterations=30), lambda r: int(r.iterations))
+    c_src = cl("c/src", "c/src_mask")
+    c_tgt = cl("c/tgt", "c/tgt_mask").with_attrs(
+        normal=torch.from_numpy(d["c/tgt_normals"]).to(dev))
+    single("icp C", lambda: icp(c_src, c_tgt, **ICP_KW), lambda r: int(r.iterations))
+    ds, dt_ = cl("d/src"), cl("d/tgt")
+    single("gicp D", lambda: gicp(ds, dt_, **GICP_KW, **odometry_tool.probed_cells(
+        ds, dt_, "gicp", GICP_KW["max_corr_dist"])), lambda r: int(r.iterations))
+    single("ndt D", lambda: ndt(ds, cl("d/ndt_tgt"), init_transform=torch.from_numpy(
+        d["d/prior"]).to(dev), **NDT_KW), lambda r: int(r.iterations))
+    edges = [torch.from_numpy(d[f"f/{k}"]).to(dev) for k in ("es", "ed", "cs", "cd", "cv")]
+    single("lum F", lambda: lum(torch.from_numpy(d["f/init"]).to(dev), *edges,
+                                max_iterations=F_KITTI_ITERS, solver="cg"),
+           lambda r: int(r.iterations) * 48)
+    intr = Intrinsics(*G_INTR)
+    H, W = G_SHAPE
+
+    def fuse():
+        vol = make_volume(G_RES, G_SIZE, origin=G_ORIGIN)
+        for k in range(I_FRAMES):
+            vol = integrate(vol, torch.from_numpy(d["g/frames"][k]).to(dev), intr,
+                            torch.from_numpy(d["g/poses"][k]).to(dev))
+        return vol
+
+    vol_s = single("tsdf", fuse, lambda r: I_FRAMES)
+    rc_s = single("raycast", lambda: raycast(vol_s, intr, torch.from_numpy(
+        d["g/poses"][-1]).to(dev), H, W), lambda r: 1)
+
+    # each result against its path's limit, and against the single-device run
+    step = torch.from_numpy(d["step"])
+    limits = {}
+    dt, dang = residual_motion(torch.from_numpy(out_a["icp A"]), M)
+    limits["icp A"] = (dt <= 1e-3 and dang <= 0.01, f"{dt:.2e} m, {dang:.2e} deg of M left")
+    for name in ("icp C", "gicp D"):
+        g = pose_gap(torch.from_numpy(out_a[name]), step)
+        limits[name] = (g[0] <= 0.03, f"{g[0]:.4f} m, {g[1]:.2e} rad from the true step")
+    from scipy.spatial.transform import Rotation
+    left = out_a["ndt D"].astype(np.float64) @ np.linalg.inv(d["step"])
+    rot = float(np.linalg.norm(Rotation.from_matrix(left[:3, :3]).as_rotvec()))
+    limits["ndt D"] = (np.linalg.norm(left[:2, 3]) <= 0.015 and rot <= 5e-4,
+                       f"left of the prior: {np.linalg.norm(left[:2, 3]):.4f} m across and "
+                       f"up, {rot:.2e} rad")
+    ate_f = trajectory.trajectory_ate(out_a["lum F golden"].astype(np.float64), d["f/golden"],
+                                      align=False).rmse
+    limits["lum F"] = (ate_f <= F_KITTI_TRUTH_ATE and bool(np.isfinite(out_a["lum F"]).all()),
+                       f"from the golden poses ATE {ate_f:.4f} m")
+    gaps = {}
+    for name, (ok, what) in limits.items():
+        mine = torch.from_numpy(out_a[name])
+        theirs = ref[name].poses if name == "lum F" else ref[name].transform[None]
+        g = [pose_gap(a, b) for a, b in zip(mine.reshape(-1, 4, 4), theirs)]
+        gaps[name] = (max(x[0] for x in g), max(x[1] for x in g))
+        print(f"phase 11: (a) {name}: {what}; against the single-device function "
+              f"{gaps[name][0]:.3e} m, {gaps[name][1]:.3e} rad", flush=True)
+        check(ok, f"(a) {name} misses its path's limit: {what}")
+    # the same arithmetic on one rank as ndt and lum(solver="cg"); ICP's
+    # Umeyama from moments (point-to-point) and its sums (point-to-plane),
+    # and GICP's brute covariances against gicp's cell-list ones, differ
+    for name in ("ndt D", "lum F"):
+        check(max(gaps[name]) <= I_POSE_TOL, f"(a) sharded {name} differs from the "
+              f"single-device function by {gaps[name]}")
+    n_diff, n_excused = tsdf_gap_voxels(vol_a, vol_s, d, intr)
+    print(f"phase 11: (a) TSDF after {I_FRAMES} frames: {n_diff} of {G_RES ** 3} voxels differ "
+          f"from integrate's, {n_excused} of them within 1e-4 px of a half pixel or 1e-6 m of "
+          f"the band (C27)", flush=True)
+    check(n_diff == n_excused, "(a) the sharded volume differs from integrate's")
+    hit_s = rc_s[2].cpu().numpy()
+    vdiff = float(np.abs(out_a["verts"] - rc_s[0].cpu().numpy()).max())
+    print(f"phase 11: (a) raycast: {int(hit_s.sum())} hits, equal to raycast's "
+          f"{bool(np.array_equal(out_a['hit'], hit_s))}, max |v - v_raycast| {vdiff:.3e} m; "
+          f"world model round trip {bool(out_a['world model'])}", flush=True)
+    check(np.array_equal(out_a["hit"], hit_s) and vdiff <= 1e-6,
+          "(a) sharded raycast differs from raycast")
+    check(bool(out_a["world model"]), "(a) the evicted slab does not round-trip")
+    del vol_s, rc_s, ref
+    mesh.close()
+    check(not dist.is_initialized(), "(a) the one-rank group outlived its mesh")
+    torch.cuda.empty_cache()
+
+    # B1 against its plain version at the shapes path I gives it, after the
+    # counts were read: sharded GICP's shard (the whole source at one rank,
+    # rank 0's block at I_RANKS) against its target, and rank 0's block of
+    # path A's source at I_RANKS against path A's target (one rank's 120k x
+    # 120k is phase 1's main case); the queries are the shards moved by the
+    # final transforms, as a next iteration would give them
+    record_b1["path_i"] = []
+    for name, T, sx, tx in (
+            ("sharded GICP, one rank", out_a["gicp D"], d["d/src"], d["d/tgt"]),
+            (f"sharded GICP, rank 0 of {I_RANKS}", out_a["gicp D"],
+             d["d/src"][:-(-len(d["d/src"]) // I_RANKS)], d["d/tgt"]),
+            (f"sharded ICP on path A, rank 0 of {I_RANKS}", out_a["icp A"],
+             d["a/src"][:-(-len(d["a/src"]) // I_RANKS)], d["a/tgt"])):
+        q = transform_points(torch.from_numpy(T).to(dev),
+                             torch.from_numpy(np.ascontiguousarray(sx)).to(dev))
+        t = torch.from_numpy(np.ascontiguousarray(tx)).to(dev)
+        m = torch.ones(len(t), dtype=torch.bool, device=dev)
+        err, _ = nn1_against_plain(nn1_mod, f"at {name}'s shape", t, m, q, tag="phase 11")
+        ms = cuda_ms(lambda: nn1_mod.nn1(t, m, q), reps=10)
+        plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t, m, q), reps=1)
+        bound_s, bound_by = nn1_bound_ms(len(q), len(t))
+        print(f"phase 11: nn1 at {name}'s shape {len(q)} x {len(t)}: {ms:.3f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {bound_s * 1e3:.3f} ms ({bound_by}) [{card_line()}]",
+              flush=True)
+        record_b1["path_i"].append({"case": name, "q": len(q), "m": len(t), "ms": ms,
+                                    "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                                    "bound_by": bound_by, "max_abs_err": err})
+
+    # (b) I_RANKS ranks sharing the card under gloo
+    with tempfile.TemporaryDirectory() as work:
+        np.savez(os.path.join(work, "inputs.npz"), **d)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--path-i-rank",
+                                   str(r), work]) for r in range(I_RANKS)]
+        t0 = time.perf_counter()
+        # all ranks polled together: when one fails or time runs out, the
+        # rest (blocked in a collective) are killed at once
+        while (any(p.poll() is None for p in procs) and time.perf_counter() - t0 < I_JOIN_S
+               and not any(p.poll() for p in procs)):
+            time.sleep(0.2)
+        killed = [p.poll() is None for p in procs]
+        for p, k in zip(procs, killed):
+            if k:
+                p.kill()
+                p.wait()
+        codes = [p.returncode for p in procs]
+        print(f"phase 11: (b) {I_RANKS} gloo ranks exited {codes} in "
+              f"{time.perf_counter() - t0:.1f} s (killed: {killed})", flush=True)
+        check(codes == [0] * I_RANKS, f"(b) a rank failed: exit codes {codes}")
+        outs = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(I_RANKS)]
+        stats = []
+        for r in range(I_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                stats.append(json.load(f))
+    Rl = G_RES // I_RANKS
+    slabs = [[digest(x[k * Rl:(k + 1) * Rl]) for x in (vol_a.tsdf, vol_a.weight)]
+             for k in range(I_RANKS)]
+    # the evicted slab of I_RANKS ranks is (a)'s first Rl planes; rank r's slab
+    # after the shift is (a)'s slab r + 1, the last rank's enters empty
+    evicted = slabs[0]
+    empty = torch.ones_like(vol_a.tsdf[:Rl])
+    shifted = slabs[1:] + [[digest(empty), digest(torch.zeros_like(empty))]]
+    for r, (o, st) in enumerate(zip(outs, stats)):
+        for name in ("icp A", "icp C", "gicp D", "ndt D"):
+            g = pose_gap(torch.from_numpy(o[name]), torch.from_numpy(out_a[name]))
+            print(f"phase 11: (b) rank {r} {name}: {g[0]:.3e} m, {g[1]:.3e} rad from (a)",
+                  flush=True)
+            check(g[0] <= I_POSE_TOL and g[1] <= I_POSE_TOL, f"(b) rank {r} {name} off (a)")
+        # LUM from the drifted poses moves poses up to ~360 m from the origin
+        # (float32 resolution 3e-5 m there) and diverges (ROADMAP C31), so
+        # its translations are held to I_POSE_TOL plus 2^-20 (8 ulp) of their
+        # distance from the origin; from the golden poses to I_POSE_TOL
+        gl = [pose_gap(torch.from_numpy(a), torch.from_numpy(b))
+              for a, b in zip(o["lum F"], out_a["lum F"])]
+        excess = max(g[0] - 2.0 ** -20 * float(np.linalg.norm(b[:3, 3]))
+                     for g, b in zip(gl, out_a["lum F"]))
+        gl = (max(x[0] for x in gl), max(x[1] for x in gl))
+        gg = [pose_gap(torch.from_numpy(a), torch.from_numpy(b))
+              for a, b in zip(o["lum F golden"], out_a["lum F golden"])]
+        gg = (max(x[0] for x in gg), max(x[1] for x in gg))
+        vdiff = float(np.abs(o["verts"] - out_a["verts"]).max())
+        print(f"phase 11: (b) rank {r} lum F from the golden poses: {gg[0]:.3e} m, {gg[1]:.3e} "
+              f"rad from (a); from the drifted poses {gl[0]:.3e} m ({excess:.3e} m beyond 8 ulp "
+              f"of the distance), {gl[1]:.3e} rad; TSDF slab "
+              f"bitwise (a)'s {list(o['slab']) == slabs[r]}; raycast hits equal "
+              f"{bool(np.array_equal(o['hit'], out_a['hit']))}, max |v - v_a| {vdiff:.3e} m; "
+              f"evicted slab bitwise {list(o['evicted']) == evicted}", flush=True)
+        check(max(gg) <= I_POSE_TOL, f"(b) rank {r} LUM from the golden poses off (a)")
+        check(excess <= I_POSE_TOL and gl[1] <= I_POSE_TOL, f"(b) rank {r} LUM off (a)")
+        check(list(o["slab"]) == slabs[r], f"(b) rank {r}: TSDF slab differs from (a)'s")
+        check(np.array_equal(o["hit"], out_a["hit"]) and vdiff <= 1e-6,
+              f"(b) rank {r}: raycast differs from (a)")
+        check(list(o["evicted"]) == evicted and bool(o["world model"]),
+              f"(b) rank {r}: evicted slab differs from (a)'s")
+        check(list(o["shifted"]) == shifted[r], f"(b) rank {r}: shifted slab is not (a)'s next")
+        for name in ("icp A", "gicp D"):
+            check(st[name]["b1"] > 0, f"(b) rank {r} {name} launched no B1")
+        check(st["ndt D"]["b2"] == 1, f"(b) rank {r} ndt D launched B2 {st['ndt D']['b2']} times")
+    table = []
+    for name in ("icp A", "icp C", "gicp D", "ndt D", "lum F", "tsdf", "raycast", "shift"):
+        one = stats_a[name]
+        two = [st[name] for st in stats]
+        per = lambda c: c["s"] * 1e3 / max(c["n"], 1)  # noqa: E731
+        table.append({"call": name, "ms_one_rank": per(one),
+                      "ms_two_ranks": max(per(c) for c in two),
+                      "collectives_per_unit": {k: [v[0] / max(one["n"], 1), v[1] / max(one["n"], 1)]
+                                               for k, v in one["collectives"].items()},
+                      "b1_per_rank": [one["b1"]] + [c["b1"] for c in two],
+                      "b2_per_rank": [one["b2"]] + [c["b2"] for c in two]})
+    print("phase 11: summary " + json.dumps(table) + f" [{card_line()}]", flush=True)
+    return table
+
+
+def digest(x: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes: two tensors with equal digests are
+    bitwise equal."""
+    import hashlib
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def filter_front(cloud):
+    """Path J's filters before the voxel grid: the crop box, statistical and
+    radius outlier removal, and the ground found by the progressive
+    morphological filter (with the street's up axis as z). Returns the
+    filtered cloud, its ground mask and each stage's seconds."""
+    from pcl_tpu_torch import filters
+    from pcl_tpu_torch.core.transforms import transform_cloud
+
+    secs = {}
+    c, secs["crop"] = timed(lambda: filters.crop_box(cloud, (-J_BOX,) * 3, (J_BOX,) * 3))
+    c, secs["sor"] = timed(lambda: filters.statistical_outlier_removal(c, **J_SOR))
+    c, secs["ror"] = timed(lambda: filters.radius_outlier_removal(c, **J_ROR))
+    up = torch.from_numpy(J_UP).to(cloud.xyz.device)
+    ground, secs["pmf"] = timed(lambda: filters.progressive_morphological_filter(
+        transform_cloud(up, c), **J_PMF))
+    return c, ground, secs
+
+
+def sor_margin(cloud):
+    """Per point: whether its mean k-NN distance lies within 1e-5 of the
+    statistical filter's threshold, or its k-th and (k+1)-th neighbours tie to
+    1e-4 (ROADMAP C12); such points may fall either way on another device."""
+    from pcl_tpu_torch import search
+
+    k = J_SOR["mean_k"]
+    _, d2, valid = search.knn(cloud, cloud.xyz, k + 2)
+    d = torch.sqrt(torch.clamp(d2[:, 1:k + 1], min=0.0))
+    v = valid[:, 1:k + 1]
+    nv = v.sum(1)
+    mean_d = torch.where(v, d, 0.0).sum(1) / torch.clamp(nv, min=1)
+    m = cloud.mask & (nv >= k)
+    g_mean = mean_d[m].mean()
+    thresh = g_mean + J_SOR["stddev_mult"] * mean_d[m].std()
+    tie = (d2[:, k + 1] - d2[:, k]).abs() <= 1e-4 * d2[:, k + 1]
+    return ((mean_d - thresh).abs() <= 1e-5 * thresh) | tie
+
+
+def phase12_path_j(segsum, nn1_mod, scans, golden, record_b1, record_b2):
+    """Path J: the filter front end on path C's six scans, then
+    voxel_downsample (B2), normals and point-to-plane odometry."""
+    from pcl_tpu_torch import filters
+    from pcl_tpu_torch.core.cloud import from_numpy
+    from pcl_tpu_torch.core.transforms import transform_cloud
+    from pcl_tpu_torch.registration import trajectory
+
+    raw = [from_numpy(s, capacity=SCAN_CAPACITY) for s in scans]
+    filter_front(raw[1])                                  # warm-up
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    kept = []
+    for i, c in enumerate(raw):
+        f, ground, secs = filter_front(c)
+        kept.append(f.with_mask(~ground))
+        print(f"phase 12: scan {i}: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                                  for k, v in secs.items())
+              + f"; {int(f.mask.sum())} points after the outlier filters, ground "
+              f"{int(ground.sum())}, kept {int(kept[-1].mask.sum())}", flush=True)
+        if i == 0:
+            f0, g0 = f, ground
+    (clouds, poses, results), secs = timed(lambda: front_end(kept))
+    launches = segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["J"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"]["J"] = launches
+    ate = trajectory.trajectory_ate(poses, golden, align=False)
+    print(f"phase 12: front end on the filtered scans {secs * 1e3:.1f} ms: voxels "
+          f"{[int(c.mask.sum()) for c in clouds]}, ICP iterations "
+          f"{[int(r.iterations) for r, _ in results]}, converged "
+          f"{[bool(r.converged) for r, _ in results]}, ATE (unaligned) {ate.rmse:.6f} m; "
+          f"B2 launches {launches} [{card_line()}]", flush=True)
+    check(launches == N_SCANS, f"path J launched B2 {launches} times for {N_SCANS} scans")
+
+    # the ground: scan 0's frame is the street's (golden[0] is the identity)
+    xyz = f0.xyz.cpu().numpy()
+    live = f0.mask.cpu().numpy()
+    g = g0.cpu().numpy()
+    on_ground = live & (np.abs(xyz[:, 1] + 1.7) <= 0.06) & (np.abs(xyz[:, 0]) <= 9.5)
+    on_facade = live & (np.abs(xyz[:, 0]) >= 9.95) & (xyz[:, 1] >= -1.7 + 3.5)
+    kept_ground = float(g[on_ground].mean())
+    facade_ground = float(g[on_facade].mean())
+    print(f"phase 12: scan 0 ground mask: {kept_ground:.4f} of {int(on_ground.sum())} ground "
+          f"points, {facade_ground:.4f} of {int(on_facade.sum())} facade points 3.5 m up",
+          flush=True)
+    check(kept_ground >= 0.95, f"the ground mask keeps {kept_ground} of the ground")
+    check(facade_ground == 0.0, f"the ground mask takes {facade_ground} of the facades")
+
+    # scan 0's masks on the card against the port's CPU run
+    c_cpu = from_numpy(scans[0], capacity=SCAN_CAPACITY, device="cpu")
+    (f_cpu, g_cpu, _), csecs = timed(lambda: filter_front(c_cpu))
+    margin = sor_margin(filters.crop_box(c_cpu, (-J_BOX,) * 3, (J_BOX,) * 3)).numpy()
+    differ = f0.mask.cpu().numpy() != f_cpu.mask.numpy()
+    gdiff = g != g_cpu.numpy()
+    print(f"phase 12: scan 0 card against CPU ({csecs:.1f} s on the CPU): {int(differ.sum())} "
+          f"points differ after the outlier filters ({int((differ & margin).sum())} at the "
+          f"threshold's rounding or a neighbour tie, {int(margin.sum())} such points in all); "
+          f"ground masks differ on {int((gdiff & ~differ).sum())} points kept by both",
+          flush=True)
+    check(not (differ & ~margin).any(), "scan 0: the outlier masks differ from the CPU run")
+    check(not (gdiff & ~differ).any(), "scan 0: the ground masks differ from the CPU run")
+
+    # more filters, timed on scan 0
+    c0 = raw[0]
+    times = {}
+    for name, fn in (("approximate_voxel_grid", lambda: filters.approximate_voxel_grid(c0, LEAF)),
+                     ("farthest_point_sample", lambda: filters.farthest_point_sample(c0, J_FPS)),
+                     ("grid_minimum", lambda: filters.grid_minimum(
+                         transform_cloud(torch.from_numpy(J_UP).cuda(), c0), 1.0))):
+        fn()
+        r, times[name] = timed(fn)
+        print(f"phase 12: {name} on scan 0: {times[name] * 1e3:.2f} ms, {int(r.mask.sum())} "
+              f"points", flush=True)
+    check(int(filters.farthest_point_sample(c0, J_FPS).mask.sum()) == J_FPS,
+          "farthest_point_sample did not give its samples")
+    return {"ate": ate.rmse, **times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--path-i-rank"]:
+        return path_i_rank(int(sys.argv[2]), sys.argv[3])
     import pcl_tpu_torch  # noqa: F401  (sets full-float32 matmuls)
     from pcl_tpu_torch.ops import _build
     from pcl_tpu_torch.ops import nn1 as nn1_mod
@@ -2740,10 +3357,15 @@ def main() -> int:
     parts_h = phase10_path_h(segsum, nn1_mod, street, alley_scene, scans, golden, record,
                              record_b2)
     lap("phase 10")
+    table_i = phase11_path_i(segsum, nn1_mod, scans, golden, src, tgt, M, record, record_b2)
+    lap("phase 11")
+    out_j = phase12_path_j(segsum, nn1_mod, scans, golden, record, record_b2)
+    lap("phase 12")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
-        # H (the rest of registration)
+        # H (the rest of registration), I (the sharded functions, one rank),
+        # J (the filter front end)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -2760,6 +3382,11 @@ def main() -> int:
           + f"; path G {out_g['ms_frame']:.1f} ms per frame, ATE {out_g['ate']:.5f} m, peak "
           f"{out_g['peak_gib']:.2f} GiB; path H "
           + ", ".join(f"{n} {v['s'] * 1e3:.1f} ms" for n, v in parts_h.items())
+          + "; path I ms per unit (one rank / two ranks) "
+          + ", ".join(f"{c['call']} {c['ms_one_rank']:.2f} / {c['ms_two_ranks']:.2f}"
+                      for c in table_i)
+          + f"; path J ATE {out_j['ate']:.6f} m, "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in out_j.items() if k != "ate")
           + f" [{card}]", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

@@ -7,7 +7,10 @@ CUDA) and returns the ``[V, 4, 4]`` poses as numpy. Backends:
 
   'lum'         dense 6Vx6V LUM solve        (registration/graph.py:lum)
   'lum_cg'      block-Jacobi CG, O(E) memory (lum(..., solver='cg'))
-  'lum_sharded' edge-sharded CG over several cards: not ported yet, raises
+  'lum_sharded' edge-sharded CG over the ranks of a mesh
+                (parallel/graph_sharded.py:sharded_lum; ``mesh=``, by default
+                ``make_mesh(device=device)``, closed afterwards: a one-rank
+                group it formed is destroyed)
   'elch'        chain loop-closure distribution (graph.py:elch_distribute)
 
 ``register_optimizer(name, fn)`` adds a backend ``fn(graph, **kw) -> [V,4,4]``.
@@ -90,10 +93,18 @@ def _lum_cg_backend(graph: PoseGraph, max_corr=None, device=None, **kw):
     return _lum_backend(graph, max_corr=max_corr, solver="cg", device=device, **kw)
 
 
-def _lum_sharded_backend(graph: PoseGraph, **kw):
-    raise NotImplementedError(
-        "the 'lum_sharded' backend (edge-sharded CG over several cards) is not ported "
-        "yet: ROADMAP item 15 (multi-GPU on torch.distributed)")
+def _lum_sharded_backend(graph: PoseGraph, mesh=None, max_corr=None, device=None, **kw):
+    from pcl_tpu_torch.parallel.graph_sharded import sharded_lum
+    from pcl_tpu_torch.parallel.mesh import make_mesh
+    own = mesh is None
+    if own:
+        mesh = make_mesh(device=device)
+    try:
+        P, es, ed, cs, cd, cv = _prep(graph, max_corr, mesh.device)
+        return sharded_lum(mesh, P, es, ed, cs, cd, cv, **kw).poses
+    finally:
+        if own:
+            mesh.close()
 
 
 def _elch_backend(graph: PoseGraph, loop_transform=None, device=None, **kw):

@@ -100,7 +100,9 @@ def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     with ``(+inf, 0)`` past ``L``. The kNN lists of every backend take it."""
     kk = min(k, d.shape[1])
     dd, col = torch.sort(d, dim=1, stable=True)
-    dd, col = dd[:, :kk], col[:, :kk]
+    # copies, not views: a view of the first k columns would keep the whole
+    # sorted [Q, L] rows alive, and callers keep one result per query chunk
+    dd, col = dd[:, :kk].clone(), col[:, :kk].clone()
     if kk < k:
         dd = torch.nn.functional.pad(dd, (0, k - kk), value=math.inf)
         col = torch.nn.functional.pad(col, (0, k - kk))

@@ -803,3 +803,114 @@ def test_ndt_2d_on_card_matches_cpu(cuda):
                   max_iterations=2, levels=1) for d in (cuda, "cpu")]
     np.testing.assert_allclose(out[0].params.cpu().numpy(), out[1].params.numpy(), atol=1e-5)
     assert int(out[0].iterations) == int(out[1].iterations)
+
+
+def _sharded_pair(n=20000, seed=21):
+    """A noisy pair in a 20 m cube, the source moved by 2 deg and 0.1 m."""
+    rng = np.random.default_rng(seed)
+    tgt = rng.uniform(-10, 10, size=(n, 3)).astype(np.float32)
+    a = np.radians(2.0)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    src = ((tgt + rng.normal(scale=0.01, size=tgt.shape)) @ R.T + [0.1, -0.05, 0.08])
+    return src.astype(np.float32), tgt
+
+
+def _sharded_icp_on(mesh):
+    from pcl_tpu_torch.parallel import sharded_icp
+
+    src, tgt = (torch.from_numpy(a).to(mesh.device) for a in _sharded_pair())
+    ones = torch.ones(len(src), dtype=torch.bool, device=mesh.device)
+    return sharded_icp(mesh, src, ones, tgt, ones, max_corr_dist=1.0, max_iterations=10,
+                       corr_backend="brute")
+
+
+def _gloo_rank(rank: int, store: str, out: str) -> None:
+    """One of two ranks sharing the card (gloo, host staging)."""
+    from pcl_tpu_torch.parallel import make_mesh, runtime
+
+    runtime.initialize_multihost(init_method=f"file://{store}", num_processes=2,
+                                 process_id=rank)
+    mesh = make_mesh()
+    assert mesh.backend == "gloo" and mesh.device.type == "cuda"
+    nn1_mod.nn1.launches = 0
+    T, _, _ = _sharded_icp_on(mesh)
+    np.save(f"{out}/rank{rank}.npy", T.cpu().numpy())
+    np.save(f"{out}/launches{rank}.npy", np.asarray(nn1_mod.nn1.launches))
+    torch.distributed.destroy_process_group()
+
+
+def _one_rank_nccl():
+    import torch.distributed as dist
+
+    from pcl_tpu_torch.parallel import make_mesh
+
+    assert not dist.is_initialized()
+    mesh = make_mesh()
+    try:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        nn1_mod.nn1.launches = 0
+        runs = [_sharded_icp_on(mesh)[0] for _ in range(2)]
+        return runs, nn1_mod.nn1.launches, mesh.counts
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_icp_one_rank_nccl_repeats_and_launches_b1(cuda):
+    (T1, T2), launches, counts = _one_rank_nccl()
+    assert torch.equal(T1, T2)
+    assert launches == 2 * 10                      # B1 once an iteration
+    assert counts["psum"] == [20, 20 * 18 * 4]
+    src, tgt = _sharded_pair()
+    ref = icp(make_cloud(src), make_cloud(tgt), max_corr_dist=1.0, max_iterations=10,
+              corr_backend="brute")
+    # Umeyama from summed moments against estimate_svd: another rounding
+    np.testing.assert_allclose(T1.cpu().numpy(), ref.transform.cpu().numpy(), atol=1e-4)
+
+
+def test_sharded_icp_two_gloo_ranks_on_one_card_match_nccl(cuda, tmp_path):
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    (T, _), _, _ = _one_rank_nccl()
+    for r in range(2):
+        assert int(np.load(tmp_path / f"launches{r}.npy")) == 10
+        np.testing.assert_allclose(np.load(tmp_path / f"rank{r}.npy"), T.cpu().numpy(),
+                                   atol=1e-4)
+    np.testing.assert_array_equal(np.load(tmp_path / "rank0.npy"), np.load(tmp_path / "rank1.npy"))
+
+
+def test_pose_graph_sharded_backend_on_card_leaves_no_group(cuda):
+    """``lum_sharded`` with no mesh runs on a one-rank NCCL group that it
+    destroys before it returns; its poses are ``lum_cg``'s on the card within
+    1e-4 m and rad (the same CG, its sums all-reduced)."""
+    import torch.distributed as dist
+
+    from pcl_tpu_torch.registration.graph_optimizer import PoseGraph
+
+    P, pairs, _ = _pose_graph()
+
+    def optimize(method):
+        g = PoseGraph()
+        for p in P:
+            g.add_vertex(p)
+        for i, j, s, d in pairs:
+            g.add_edge(i, j, s, d)
+        return np.asarray(g.optimize(method, max_iterations=4, cg_iters=64), np.float64)
+
+    assert not dist.is_initialized()
+    sharded = optimize("lum_sharded")
+    assert not dist.is_initialized()
+    cg = optimize("lum_cg")
+    assert np.abs(sharded[:, :3, 3] - cg[:, :3, 3]).max() <= 1e-4
+    R = np.einsum("vij,vkj->vik", sharded[:, :3, :3], cg[:, :3, :3])
+    assert np.abs(R - np.eye(3)).max() <= 1e-4

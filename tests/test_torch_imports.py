@@ -17,6 +17,8 @@ import torch
 
 from pcl_tpu_torch import fusion as tfusion
 from pcl_tpu_torch import interop
+from pcl_tpu_torch import parallel as tparallel
+from pcl_tpu_torch.parallel import runtime as tparallel_runtime
 from pcl_tpu_torch.core import cloud as tcloud
 from pcl_tpu_torch.registration import graph as tgraph
 from pcl_tpu_torch.registration import graph_optimizer as tgo
@@ -75,7 +77,13 @@ def test_new_modules_are_covered():
                  "registration/ndt2d.py", "registration/pyramid.py", "registration/fpcs.py",
                  "registration/ppf.py", "keypoints/__init__.py", "keypoints/iss.py",
                  "tools/compute_hausdorff.py", "tools/ndt2d.py", "tools/icp2d.py",
-                 "tools/iterative_closest_point.py", "tools/compute_cloud_error.py"):
+                 "tools/iterative_closest_point.py", "tools/compute_cloud_error.py",
+                 "parallel/__init__.py", "parallel/mesh.py", "parallel/runtime.py",
+                 "parallel/icp_sharded.py", "parallel/gicp_sharded.py",
+                 "parallel/ndt_sharded.py", "parallel/graph_sharded.py",
+                 "parallel/tsdf_sharded.py", "filters/passthrough.py", "filters/sampling.py",
+                 "filters/outliers.py", "filters/crop_hull.py", "filters/morphological.py",
+                 "filters/extras.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -86,6 +94,20 @@ def test_registration_exports_the_jax_names():
     port = importlib.import_module("pcl_tpu_torch.registration")
     assert port.__all__ == jax_all
     assert all(hasattr(port, name) for name in jax_all)
+
+
+@pytest.mark.parametrize("package", ["parallel", "filters"])
+def test_package_exports_the_jax_names(package):
+    """``pcl_tpu_torch.parallel`` and ``.filters`` export what the JAX
+    package's do, in the same order; importing them creates no process
+    group."""
+    import torch.distributed as dist
+
+    jax_all = importlib.import_module(f"pcl_tpu.{package}").__all__
+    port = importlib.import_module(f"pcl_tpu_torch.{package}")
+    assert port.__all__ == jax_all
+    assert all(callable(getattr(port, name)) for name in jax_all)
+    assert not dist.is_initialized()
 
 
 def test_scan_sees_forbidden_imports(tmp_path):
@@ -108,9 +130,12 @@ def test_scan_sees_forbidden_imports(tmp_path):
     lambda: tgraph.build_edges_from_correspondences([(0, 1, np.zeros((3, 3)), np.zeros((3, 3)))],
                                                     4),
     lambda: tgo.PoseGraph().optimize("elch", loop_transform=np.eye(4)),
+    lambda: tparallel.make_mesh(),
+    lambda: tparallel_runtime.initialize_multihost(init_method="file:///nonexistent",
+                                                   num_processes=2, process_id=0),
 ], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays",
         "tsdf_volume_from_arrays", "make_volume", "build_edges_from_correspondences",
-        "PoseGraph.optimize"])
+        "PoseGraph.optimize", "make_mesh", "initialize_multihost"])
 def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -82,6 +82,16 @@ def test_bruteforce_knn_more_than_targets(rng):
     assert not got[2][:, 5:].any()
 
 
+def test_smallest_k_keeps_k_columns_only():
+    """The k smallest are copies: a view of the sorted rows would keep every
+    query chunk's whole ``[chunk, M]`` sort alive (the brute k-NN of 70k
+    points held 60 GB that way)."""
+    d = torch.rand(64, 5000)
+    dd, col = tbf.smallest_k(d, 8)
+    assert dd.untyped_storage().nbytes() == 64 * 8 * 4
+    assert col.untyped_storage().nbytes() == 64 * 8 * 8
+
+
 @pytest.mark.parametrize("r,cap", [(0.3, 16), (0.6, 8)])
 def test_bruteforce_radius(rng, r, cap):
     t, q = _points(rng, 800), _points(rng, 250)
