@@ -104,7 +104,27 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    and radius outlier removal, progressive morphological ground removal,
    then voxel_downsample (B2), normals and odometry; scan 0's masks against
    the CPU run and its ground against the street's; approximate_voxel_grid,
-   farthest-point sampling and grid_minimum timed.
+   farthest-point sampling and grid_minimum timed;
+13. path K, descriptors, keypoints and clusters on path E's pair with an
+   intensity and an RGB made from each point's place in the street: (a)
+   Harris 3-D, SUSAN and ISS keypoints of the voxels and SIFT on the raw
+   scan's intensity (B2 once an octave, B1 once to snap); (b) SHOT at every
+   voxel, and at the keypoints SHOT with the voxels as surface, SHOT colour,
+   USC, 3DSC, RoPS, spin images, BOARD and FLARE frames, RSD, principal
+   curvatures, intensity gradient, RIFT and intensity spin images, PFHRGB
+   and CPPF; on the voxels boundary points, difference of normals, moment
+   invariants and FPFH persistence at three scales, each timed with its peak
+   memory; (c) SHOT and FPFH matches of the keypoints (the share within two
+   voxels of the true counterpart) and prerejective RANSAC on the SHOT
+   matches, refined by point-to-plane ICP; (d) Euclidean clusters of the
+   voxels and per cluster VFH, CVFH, OUR-CVFH, CRH, ESF, GASD, GASD colour
+   and GRSD, and crh_align of one car seen in both scans; (e) SHOT, USC and
+   RoPS of scan 1 moved by a seeded rigid motion against the unmoved; (f)
+   every function of the slice on the card against the CPU on 2,048-voxel
+   subclouds; (g) B1 and B2 against their plain versions on every call
+   (a)-(d) made: SIFT's snaps, the prerejective sweep at its full shape
+   (the plain version on its first K_PLAIN_ROWS queries), each cluster's
+   ESF midpoints, the voxel grids and SIFT's octaves.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
@@ -268,6 +288,45 @@ H_NDT2D_LIMIT = (1.64, 9.3e-5)      # m, rad
 # keypoints of each scan
 H_CPU_POINTS = 2048
 H_CPU_KEYPOINTS = 300
+
+# path K: descriptors, keypoints and clusters on path E's pair. Descriptors
+# and keypoint detectors take FPFH's and ISS's 5-voxel support; on a plane
+# the Harris response is 0 up to rounding, so Harris keypoints need a
+# threshold above it (corners over 1.5 m score 0.03)
+K_RADIUS = 5 * E_LEAF
+K_HARRIS_THRESHOLD = 1e-3
+K_SHOT_K = 128                      # the JAX default of estimate_shot_interpolated
+K_SIFT = dict(min_scale=E_LEAF, n_octaves=3, scales_per_octave=3)
+K_MATCH = 2 * E_LEAF                # a match within two voxels of its counterpart
+K_PERSISTENCE = (1.2, 1.5, 1.8)     # m: FPFH's support at three scales
+K_CPU_POINTS = 2048
+K_CPU_RAW = 5000                    # (f): SIFT on this many raw points
+# (f): FPFH persistence's masks may differ on this share of the rows (C19);
+# its distances are compared on the rows float64 finds firm, at least this
+# share of the rows
+K_PERSIST_MASK_SHARE = 0.02
+K_PERSIST_FIRM_SHARE = 0.5
+# (g): B1's plain version on this many of the prerejective sweep's queries
+# (its time grows as Q M; a 1-NN row depends on its own query only)
+K_PLAIN_ROWS = 1 << 21
+# (d): Euclidean clusters of the voxels (ground removed): neighbouring 0.3 m
+# voxels lie within 0.42 m of each other, the gaps between cars, poles and
+# facades are 2 m and more
+K_CLUSTER_TOLERANCE = 0.5
+K_CLUSTER_MIN = 20
+# (e): scan 1's voxels moved by this many m and deg (a seeded axis). Rows
+# whose decisions float64 finds firm may still differ beyond the tolerance:
+# `eigh33`'s closed form errs by up to ~2e-4 of the largest eigenvalue (C9),
+# which turns a frame with eigenvalues 5% apart by up to ~5e-3 rad and moves
+# lattice neighbours across cuts further than the 1e-4 margin. The limit is
+# 1.5x SHOT's share of 28 in 1,515 firm rows that the H100 and the CPU read
+# with the first form of these checks (PERF.md, path K). With the tests'
+# checks (tests/float64_cuts.py) both read 36 of 1,533 SHOT rows beyond 1e-3,
+# 24 of 12,272 USC rows, 52 of 11,433 RoPS rows: tests/rehearse_path_k.py's
+# `port` step prints them on the CPU
+K_MOVE = (5.0, 30.0)
+K_INVARIANCE_TOL = 1e-3
+K_INVARIANCE_SHARE = 0.03
 
 # path F: pose-graph alignment on a closed route through path C's street: scans
 # out along it, then back in the other lane facing the same way, and odometry
@@ -1432,14 +1491,14 @@ def live_rows(cloud):
     return cloud.take(torch.nonzero(cloud.mask)[:, 0])
 
 
-def fpfh_k(cloud) -> int:
+def fpfh_k(cloud, radius: float = E_FPFH_RADIUS) -> int:
     """k for FPFH from the cloud's density: the median number of points
-    within ``E_FPFH_RADIUS`` of 2,000 sampled points (host kd-tree), within
+    within ``radius`` of 2,000 sampled points (host kd-tree), within
     [16, 64]."""
     from scipy.spatial import cKDTree
 
     x = cloud.xyz[cloud.mask].cpu().numpy()
-    counts = cKDTree(x).query_ball_point(x[:: max(1, len(x) // 2000)], E_FPFH_RADIUS,
+    counts = cKDTree(x).query_ball_point(x[:: max(1, len(x) // 2000)], radius,
                                          return_length=True)
     return int(np.clip(np.median(counts), 16, 64))
 
@@ -3290,6 +3349,692 @@ def phase12_path_j(segsum, nn1_mod, scans, golden, record_b1, record_b2):
     return {"ate": ate.rmse, **times}
 
 
+def street_attributes(world: np.ndarray, scan: np.ndarray):
+    """Path K's intensity and RGB of scan points, a function of where each
+    point lies in the street (``world``, the scene frame) and of its range
+    (``scan``, the scanner's frame): a reflectance per surface (ground,
+    facades, poles, cars) with a pattern, falling off with range; asphalt
+    with lane marks, brick facades with windows, grey poles and a colour per
+    car. Returns ``(intensity [N], rgb [N, 3])`` as float32."""
+    x, y, z = world[:, 0], world[:, 1], world[:, 2]
+    ground = y < -1.55
+    facade = np.abs(x) > 9.8
+    dz = (z - 5.0) - 10.0 * np.round((z - 5.0) / 10.0)
+    pole = ~ground & ~facade & (np.hypot(np.abs(x) - 7.0, dz) < 0.35)
+    car = ~(ground | facade | pole)
+    pattern = 0.5 + 0.5 * np.sin(1.3 * z) * np.cos(0.9 * x + 0.7 * y)
+    refl = np.select([ground, facade, pole], [0.15, 0.45, 0.7], 0.9)
+    rng_ = np.linalg.norm(scan, axis=1)
+    intensity = refl * (0.8 + 0.4 * pattern) / (1.0 + (rng_ / 40.0) ** 2)
+    rgb = np.empty((len(x), 3))
+    lane = ground & (np.abs(x) < 0.15) & ((z % 6.0) < 3.0)
+    rgb[ground] = (0.22 + 0.12 * pattern[ground])[:, None]
+    rgb[lane] = 0.9
+    window = facade & ((y + 1.7) % 3.0 > 1.0) & ((z % 4.0) > 1.5)
+    rgb[facade] = np.stack([0.55 + 0.25 * pattern, 0.28 + 0.12 * pattern,
+                            0.22 + 0.05 * pattern], 1)[facade]
+    rgb[window] = np.stack([0.3 + 0.1 * pattern, 0.36 + 0.1 * pattern,
+                            0.48 + 0.1 * pattern], 1)[window]
+    rgb[pole] = (0.6, 0.6, 0.62)
+    palette = np.array([(0.8, 0.1, 0.1), (0.1, 0.2, 0.7), (0.9, 0.9, 0.9), (0.1, 0.1, 0.1),
+                        (0.2, 0.6, 0.2), (0.9, 0.7, 0.1), (0.5, 0.5, 0.55), (0.6, 0.3, 0.1),
+                        (0.3, 0.7, 0.8), (0.7, 0.2, 0.6)])
+    which = np.clip(np.round((z - 10.25) / 19.0), 0, 9).astype(int)
+    rgb[car] = palette[which[car]] * (0.85 + 0.15 * pattern[car, None])
+    return intensity.astype(np.float32), np.clip(rgb, 0, 1).astype(np.float32)
+
+
+def path_k_scans(street):
+    """Path E's two raw scans (the same draws as phases 7 and 10) as clouds
+    with path K's intensity and RGB, and the motion of scan 1."""
+    from pcl_tpu_torch.core.cloud import make_cloud
+
+    rng = np.random.default_rng(E_SEED)
+    P = pose_matrix(*E_POSE)
+    out = []
+    for pose in (np.eye(4), P):
+        s = scan_at(street, pose, rng)
+        inten, rgb = street_attributes(s @ pose[:3, :3].T + pose[:3, 3], s)
+        c = make_cloud(s)
+        out.append(c.with_attrs(intensity=torch.from_numpy(inten).to(c.xyz.device),
+                                rgb=torch.from_numpy(rgb).to(c.xyz.device)))
+    return out, P
+
+
+def k_keypoints(vox, raw):
+    """(a) for one scan: Harris 3-D and SUSAN over K_RADIUS, ISS as path H
+    takes it, SIFT on the raw scan's intensity. Returns ({name: mask over
+    the voxels, or over the raw points for SIFT}, {name: seconds})."""
+    from pcl_tpu_torch import keypoints
+
+    out, secs = {}, {}
+    out["harris"], secs["harris"] = timed(lambda: keypoints.harris3d_keypoints(
+        vox, K_RADIUS, threshold=K_HARRIS_THRESHOLD)[0])
+    out["susan"], secs["susan"] = timed(lambda: keypoints.susan_keypoints(vox, K_RADIUS)[0])
+    out["iss"], secs["iss"] = timed(lambda: keypoints.iss3d_keypoints(
+        vox, H_SALIENT, 0.5 * H_SALIENT, density_weights=True)[0])
+    out["sift"], secs["sift"] = timed(lambda: keypoints.sift_keypoints(raw, **K_SIFT)[0])
+    return out, secs
+
+
+def k_descriptors(vox, kidx, gen):
+    """(b) for one scan: every descriptor of the slice, at the keypoints
+    ``kidx`` where it describes a keypoint (SHOT and BOARD take the voxels as
+    search surface; the functions without ``surface`` compute every voxel's
+    row and the keypoints' rows are taken), on the voxels otherwise. Returns
+    {name: (output, seconds, peak MiB)}."""
+    from pcl_tpu_torch import features
+    from pcl_tpu_torch.features import color_features, intensity, local_misc, lrf, rops, rsd
+    from pcl_tpu_torch.features import shape_context
+
+    kq = vox.take(kidx)
+    grad = {}
+
+    def gradient():
+        grad["g"] = intensity.intensity_gradient(vox, K_RADIUS)
+        return grad["g"][kidx]
+
+    runs = {
+        "SHOT (every voxel)": lambda: features.estimate_shot(vox, K_RADIUS, k=K_SHOT_K),
+        "SHOT (keypoints, surface)": lambda: features.estimate_shot(kq, K_RADIUS, k=K_SHOT_K,
+                                                                    surface=vox),
+        "SHOT colour": lambda: features.estimate_shot_color(vox, K_RADIUS)[kidx],
+        "USC": lambda: shape_context.estimate_usc(vox, K_RADIUS)[0][kidx],
+        "3DSC": lambda: shape_context.estimate_3dsc(vox, K_RADIUS, gen=gen)[kidx],
+        "RoPS": lambda: rops.estimate_rops(vox, K_RADIUS)[0][kidx],
+        "spin images": lambda: local_misc.spin_images(vox, K_RADIUS)[kidx],
+        "BOARD": lambda: lrf.board_lrf(kq, K_RADIUS, surface=vox)[0],
+        "FLARE": lambda: lrf.flare_lrf(vox, K_RADIUS)[0][kidx],
+        "RSD": lambda: torch.stack(rsd.estimate_rsd(vox, K_RADIUS), 1)[kidx],
+        "principal curvatures": lambda: torch.stack(
+            local_misc.principal_curvatures(vox)[:2], 1)[kidx],
+        "intensity gradient": gradient,
+        "RIFT": lambda: intensity.rift(vox, K_RADIUS, grad["g"])[kidx],
+        "intensity spin": lambda: intensity.intensity_spin(vox, K_RADIUS)[kidx],
+        "PFHRGB": lambda: color_features.estimate_pfhrgb(vox)[kidx],
+        "CPPF": lambda: color_features.estimate_cppf(vox)[kidx],
+        "boundary": lambda: local_misc.boundary_estimation(vox, K_RADIUS),
+        "difference of normals": lambda: local_misc.difference_of_normals(vox),
+        "moment invariants": lambda: local_misc.moment_invariants(vox, K_RADIUS),
+        "FPFH persistence": lambda: features.feature_persistence(
+            lambda r: features.estimate_fpfh(vox, k=fpfh_k(vox, r)), K_PERSISTENCE, vox.mask)[0],
+    }
+    out = {}
+    for name, fn in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        r, secs = timed(fn)
+        out[name] = (r, secs, torch.cuda.max_memory_allocated() / 2 ** 20)
+    return out
+
+
+def k_cluster_descriptors(cl, gen):
+    """(d) for one cluster cloud (its own capacity): the global
+    descriptors of PCL's cluster-recognition tutorial."""
+    from pcl_tpu_torch import features
+
+    return {
+        "VFH": features.estimate_vfh(cl),
+        "CVFH": features.estimate_cvfh(cl).histograms,
+        "OUR-CVFH": features.estimate_our_cvfh(cl).histograms,
+        "CRH": features.estimate_crh(cl),
+        "ESF": features.estimate_esf(cl, gen=gen),
+        "GASD": features.estimate_gasd(cl),
+        "GASD colour": features.estimate_gasd_color(cl),
+        "GRSD": features.estimate_grsd(cl, 2 * E_LEAF),
+    }
+
+
+def float64_cuts():
+    """``tests/float64_cuts.py``: the descriptor tests' float64 margin checks
+    (numpy only), loaded from this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "float64_cuts.py")
+    spec = importlib.util.spec_from_file_location("float64_cuts", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def invariance_firm(cloud, what: str, eps: float = 1e-4) -> np.ndarray:
+    """Rows of SHOT, USC or RoPS whose every decision float64 finds firm
+    (ROADMAP C45, C49), by the parity tests' checks (``float64_cuts``) on
+    this cloud's own neighbour lists: the frame, each bin, and the
+    neighbour set (no neighbour within ``eps`` radius of the support radius,
+    and a list cut at its cap only where the next neighbour lies clearly
+    further)."""
+    from pcl_tpu_torch.search import bruteforce
+
+    cuts = float64_cuts()
+    r = float(np.float32(K_RADIUS))
+    cap = K_SHOT_K if what == "SHOT" else 64
+    if what == "SHOT":
+        found = bruteforce.knn(cloud.xyz, cloud.mask, cloud.xyz, cap + 1)
+    else:
+        found = bruteforce.radius(cloud.xyz, cloud.mask, cloud.xyz, K_RADIUS, cap=cap + 1)[:3]
+    idx, d2, ok = (t.cpu().numpy() for t in found)
+    xyz, live = cloud.xyz.cpu().numpy(), cloud.mask.cpu().numpy()
+    ok = ok & (d2 <= r * r) & live[:, None]
+    d = np.sqrt(np.maximum(d2.astype(np.float64), 0.0))
+    with np.errstate(invalid="ignore"):
+        at_cap = ok[:, cap] & (np.abs(d[:, cap] - d[:, cap - 1]) < eps * r)
+    idx, d2, ok = idx[:, :cap], d2[:, :cap], ok[:, :cap]
+    if what == "SHOT":
+        firm = cuts.shot_firm(xyz, cloud.attrs["normal"].cpu().numpy(), xyz, idx, d2, ok,
+                              K_RADIUS, eps=eps)
+    elif what == "USC":
+        frames, firm = cuts.hard_lrf64(xyz, idx, ok & (d2 > 1e-12), K_RADIUS, eps=eps)
+        firm &= cuts.sc_firm(frames, xyz, idx, ok, d2, r, 0.1 * r, eps=eps)
+    else:
+        frames, firm = cuts.hard_lrf64(xyz, idx, ok, K_RADIUS, eps=eps)
+        firm &= cuts.rops_firm(frames, xyz, idx, ok, r, eps=eps)
+    return firm & live & ~at_cap
+
+
+def row_agreement(a: torch.Tensor, b: torch.Tensor, tol: float):
+    """Rows of ``a`` and ``b`` (same shape) further apart than ``tol`` and
+    the largest difference."""
+    d = (a.double().cpu() - b.double().cpu()).abs().reshape(a.shape[0], -1) \
+        if a.ndim > 1 else (a.double().cpu() - b.double().cpu()).abs()[:, None]
+    worst = d.amax(1)
+    return int((worst > tol).sum()), float(worst.max()) if len(worst) else 0.0
+
+
+def cpu_clone(c):
+    from pcl_tpu_torch.core.cloud import Cloud
+
+    return Cloud(xyz=c.xyz.cpu(), mask=c.mask.cpu(), attrs={k: v.cpu() for k, v in c.attrs.items()})
+
+
+def k_card_vs_cpu(vox, raw, expect):
+    """(f): every function of the slice on a 2,048-voxel subcloud on the
+    card and on the CPU, the same draws on both. Each row of output is held
+    to the tolerance of the CPU parity tests; rows whose decision turns on a
+    near-tie that rounding decides (kNN ties, C12; eigenvalues that meet, C9;
+    a bin edge, C45) are counted, at most the share given. Returns the lines
+    printed."""
+    from pcl_tpu_torch import features, keypoints, segmentation
+    from pcl_tpu_torch.features import (color_features, cvfh, global_desc, gasd, intensity,
+                                        local_misc, lrf, rops, rsd, shape_context, shot)
+
+    s = vox.take(torch.nonzero(vox.mask)[:K_CPU_POINTS, 0])
+    dev = s.xyz.device
+    c = cpu_clone(s)
+    n = s.capacity
+    rnd = torch.randn((n, 3), generator=torch.Generator().manual_seed(E_SEED))
+    tri = global_desc.draw_esf_samples(c.mask, 4096, torch.Generator().manual_seed(E_SEED))
+    g_c = intensity.intensity_gradient(c, K_RADIUS)
+    g_k = intensity.intensity_gradient(s, K_RADIUS)
+    gx, tx = _patch_mesh()
+    mesh_k = rops.estimate_rops_mesh(torch.from_numpy(gx).to(dev), tx, np.arange(0, 400, 9),
+                                     0.2)
+    mesh_c = rops.estimate_rops_mesh(torch.from_numpy(gx), tx, np.arange(0, 400, 9), 0.2)
+    raw_sub = raw.take(torch.arange(min(K_CPU_RAW, raw.capacity), device=raw.xyz.device))
+    raw_c = cpu_clone(raw_sub)
+
+    def both(fn):
+        return fn(s, g_k, rnd.to(dev), tri.to(dev), raw_sub), fn(c, g_c, rnd, tri, raw_c)
+
+    cases = [
+        # name, function of (cloud, gradients, 3DSC draw, ESF draw, raw), tol, share
+        ("SHOT", lambda v, g, r, t, w: shot.estimate_shot_interpolated(v, K_RADIUS), 2e-5, 0.05),
+        ("SHOT hard", lambda v, g, r, t, w: shot.estimate_shot_hard(v, K_RADIUS), 1e-6, 0.05),
+        ("SHOT colour", lambda v, g, r, t, w: shot.estimate_shot_color(v, K_RADIUS), 1e-6, 0.05),
+        ("USC", lambda v, g, r, t, w: shape_context.estimate_usc(v, K_RADIUS)[0], 1e-5, 0.05),
+        ("3DSC", lambda v, g, r, t, w: shape_context.estimate_3dsc_core(v, K_RADIUS, r), 1e-5,
+         0.05),
+        ("RoPS", lambda v, g, r, t, w: rops.estimate_rops(v, K_RADIUS)[0], 1e-4, 0.05),
+        ("BOARD", lambda v, g, r, t, w: lrf.board_lrf(v, K_RADIUS)[0], 1e-4, 0.05),
+        ("FLARE", lambda v, g, r, t, w: lrf.flare_lrf(v, K_RADIUS)[0], 1e-4, 0.05),
+        ("spin images", lambda v, g, r, t, w: local_misc.spin_images(v, K_RADIUS), 1e-6, 0.05),
+        ("spin images (PCL's)", lambda v, g, r, t, w: local_misc.spin_images_reference(
+            v, K_RADIUS), 1e-5, 0.05),
+        ("principal curvatures", lambda v, g, r, t, w: torch.stack(
+            local_misc.principal_curvatures(v)[:2], 1), 1e-4, 0.02),
+        ("boundary", lambda v, g, r, t, w: local_misc.boundary_estimation(v, K_RADIUS), 0.5,
+         0.01),
+        ("difference of normals", lambda v, g, r, t, w: local_misc.difference_of_normals(v),
+         1e-4, 0.02),
+        ("moment invariants", lambda v, g, r, t, w: local_misc.moment_invariants(v, K_RADIUS),
+         1e-4, 0.0),
+        ("moment of inertia", lambda v, g, r, t, w: _unit(local_misc.moment_of_inertia(
+            v).moment_of_inertia)[None], 1e-5, 0.0),
+        ("RSD", lambda v, g, r, t, w: torch.stack(rsd.estimate_rsd(v, K_RADIUS), 1), 1e-4, 0.01),
+        ("GRSD", lambda v, g, r, t, w: rsd.estimate_grsd(v, 2 * E_LEAF)[None], 1e-3, 0.0),
+        ("Harris 3-D", lambda v, g, r, t, w: keypoints.harris3d_keypoints(
+            v, K_RADIUS, threshold=K_HARRIS_THRESHOLD)[1], 1e-6, 0.0),
+        ("SUSAN", lambda v, g, r, t, w: keypoints.susan_keypoints(v, K_RADIUS)[1], 1e-6, 0.01),
+        ("Euclidean clusters", lambda v, g, r, t, w: segmentation.euclidean_clusters(
+            v, K_CLUSTER_TOLERANCE)[0], 0.5, 0.0),
+        ("region growing", lambda v, g, r, t, w: segmentation.region_growing(v)[0], 0.5, 0.02),
+        ("VFH", lambda v, g, r, t, w: global_desc.estimate_vfh(v)[None], 0.2, 0.0),
+        ("ESF", lambda v, g, r, t, w: global_desc.estimate_esf_core(v, t)[None], 0.1, 0.0),
+        ("CVFH", lambda v, g, r, t, w: cvfh.estimate_cvfh(v).histograms, 0.2, 0.0),
+        ("OUR-CVFH", lambda v, g, r, t, w: cvfh.estimate_our_cvfh(v).histograms, 0.2, 0.0),
+        ("CRH", lambda v, g, r, t, w: cvfh.estimate_crh(v)[None], 1e-5, 0.0),
+        ("GASD", lambda v, g, r, t, w: gasd.estimate_gasd(v)[None], 1e-5, 0.0),
+        ("GASD colour", lambda v, g, r, t, w: gasd.estimate_gasd_color(v)[None], 1e-3, 0.0),
+        ("intensity gradient", lambda v, g, r, t, w: g, 1e-4, 0.0),
+        ("intensity spin", lambda v, g, r, t, w: intensity.intensity_spin(v, K_RADIUS), 1e-5,
+         0.0),
+        ("RIFT", lambda v, g, r, t, w: intensity.rift(v, K_RADIUS, g), 1e-4, 0.01),
+        ("PFHRGB", lambda v, g, r, t, w: color_features.estimate_pfhrgb(v), 1e-4, 0.05),
+        ("CPPF", lambda v, g, r, t, w: color_features.estimate_cppf(v), 1e-3, 0.0),
+    ]
+    lines = []
+    for name, fn, tol, share in cases:
+        a, b = both(fn)
+        off, worst = row_agreement(a, b, tol)
+        lines.append(f"{name} {off}/{a.shape[0]} rows beyond {tol:g} (max {worst:.2e})")
+        expect(off <= share * a.shape[0], f"(f) {name}: {off} of {a.shape[0]} rows differ "
+                                          f"beyond {tol} on the card and the CPU")
+    # crh_align of a CRH against itself turned by 17 bins: the peak (the
+    # runners-up may tie, C47)
+    h = [cvfh.estimate_crh(x) for x in (s, c)]
+    ak, ac = (cvfh.crh_align(x, torch.roll(x, -17), 3)[0] for x in h)
+    lines.append(f"crh_align peak {float(ak[0]):.6f} / {float(ac[0]):.6f}")
+    expect(float(ak[0]) == float(ac[0]) and abs(float(ac[0]) - 17 / 90 * 2 * math.pi) < 1e-5,
+           "(f) crh_align")
+    lines.append(persistence_card_vs_cpu(s, c, expect))
+    off, worst = row_agreement(mesh_k[0], mesh_c[0], 1e-4)
+    lines.append(f"RoPS mesh {off}/{len(mesh_c[0])} rows beyond 1e-4 (max {worst:.2e})")
+    expect(off <= 0.1 * len(mesh_c[0]), "(f) RoPS mesh differs on the card and the CPU")
+    pk, pc = (torch.stack(color_features.ppfrgb_features(
+        x.xyz[:-1], x.attrs["normal"][:-1], x.attrs["rgb"][:-1], x.xyz[1:],
+        x.attrs["normal"][1:], x.attrs["rgb"][1:]), 1) for x in (s, c))
+    off, worst = row_agreement(pk, pc, 1e-3)
+    lines.append(f"PPFRGB {off}/{len(pc)} rows beyond 1e-3 (max {worst:.2e})")
+    expect(off == 0, "(f) ppfrgb_features differ on the card and the CPU")
+    # SIFT's keypoint clouds: the octaves are voxel grids (bitwise alike,
+    # C11); an extremum within rounding of a neighbour's value may go either way
+    nk, nc = (int(keypoints.sift.sift_keypoints_cloud(x, **K_SIFT).mask.sum())
+              for x in (raw_sub, raw_c))
+    lines.append(f"SIFT keypoints {nk} / {nc} on {raw_sub.capacity} raw points")
+    expect(abs(nk - nc) <= 0.05 * nc + 1, "(f) SIFT differs on the card and the CPU")
+    return lines
+
+
+def persistence_card_vs_cpu(s, c, expect) -> str:
+    """(f) for FPFH persistence at K_PERSISTENCE on the subcloud ``s`` (card)
+    and ``c`` (CPU): the persistent masks (at most K_PERSIST_MASK_SHARE of
+    the rows differ: an FPFH bin that flips at its edge, C19, moves a row
+    across the threshold), and the distances on the rows whose FPFH float64
+    finds firm at every scale (no pair of the row or of a neighbour within
+    ``float64_cuts.EDGE`` of a bin's cut, and the same kNN lists on both
+    devices). A scale's mean descriptor moves with every flipped bin
+    elsewhere, so a firm row's distance may move by its own row's L1
+    difference plus the two means' L1 gap (the triangle inequality), plus
+    1e-5 of the sums' scale for float32 rounding. Returns the line printed."""
+    from pcl_tpu_torch import features
+    from pcl_tpu_torch.search import bruteforce
+
+    cuts = float64_cuts()
+    kept = ([], [])
+
+    def fpfh_at(v, keep):
+        def fn(x):
+            keep.append(features.estimate_fpfh(v, k=16 + int(4 * x)))
+            return keep[-1]
+        return fn
+
+    (pk, dk), (pc, dc) = (features.feature_persistence(fpfh_at(v, keep), K_PERSISTENCE, v.mask)
+                          for v, keep in zip((s, c), kept))
+    mask_off = int((pk.cpu() != pc).sum())
+    dk, dc = dk.double().cpu().numpy(), dc.double().numpy()
+    xyz, nrm, live = c.xyz.numpy(), c.attrs["normal"].numpy(), c.mask.numpy()
+    firm, row_err, excess, gaps = live.copy(), 0.0, -math.inf, []
+    for x in K_PERSISTENCE:
+        k = 16 + int(4 * x)
+        ic, _, vc = (t.numpy() for t in bruteforce.knn(c.xyz, c.mask, c.xyz, k))
+        same = np.all(bruteforce.knn(s.xyz, s.mask, s.xyz, k)[0].cpu().numpy() == ic, 1)
+        vc = vc & live[:, None]
+        firm &= cuts.fpfh_firm(cuts.spfh_firm(xyz, nrm, ic, vc) & same, ic, vc)
+    for j in range(len(K_PERSISTENCE)):
+        fk, fc = kept[0][j].double().cpu().numpy(), kept[1][j].double().numpy()
+        mu_c = fc[live].mean(0)
+        gaps.append(float(np.abs(fk[live].mean(0) - mu_c).sum()))
+        slack = (np.abs(fk - fc).sum(1) + gaps[-1]
+                 + 1e-5 * (np.abs(dc[j]).max() + np.abs(mu_c).sum()))
+        row_err = max(row_err, float(np.abs(fk - fc)[firm].max(initial=0.0)))
+        excess = max(excess, float((np.abs(dk[j] - dc[j]) - slack)[firm].max(initial=-math.inf)))
+    n_live = int(live.sum())
+    expect(mask_off <= K_PERSIST_MASK_SHARE * n_live,
+           f"(f) FPFH persistence: {mask_off} of {n_live} masks differ on the card and the CPU")
+    expect(int(firm.sum()) >= K_PERSIST_FIRM_SHARE * n_live and row_err <= 1e-4
+           and excess <= 0.0, f"(f) FPFH persistence on firm rows: {int(firm.sum())} of {n_live} "
+           f"firm, FPFH rows by {row_err:.3e}, distances beyond their slack by {excess:.3e}")
+    return (f"FPFH persistence {mask_off}/{n_live} masks differ; on {int(firm.sum())} firm "
+            f"rows FPFH within {row_err:.2e}, distances within their slack (largest excess "
+            f"{excess:.2e}; means' L1 gaps {', '.join(f'{g:.3e}' for g in gaps)})")
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / x.abs().max().clamp(min=1e-30)
+
+
+def axis_rotation(axis: np.ndarray, angle: float) -> np.ndarray:
+    """Rotation matrix of ``angle`` rad about ``axis`` (Rodrigues)."""
+    k = axis / np.linalg.norm(axis)
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + math.sin(angle) * K + (1 - math.cos(angle)) * K @ K
+
+
+def _patch_mesh(n=20):
+    """A triangulated n x n height field over 1 m (two triangles a cell)."""
+    v, u = np.mgrid[0:n, 0:n].astype(np.float64) / (n - 1)
+    z = 0.15 * np.sin(3 * u) * np.cos(2 * v)
+    xyz = np.stack([u, v, z], -1).reshape(-1, 3).astype(np.float32)
+    i = np.arange(n * n).reshape(n, n)
+    a, b, c, d = i[:-1, :-1].ravel(), i[:-1, 1:].ravel(), i[1:, :-1].ravel(), i[1:, 1:].ravel()
+    return xyz, np.concatenate([np.stack([a, b, c], 1), np.stack([b, d, c], 1)])
+
+
+@contextlib.contextmanager
+def kernel_calls(bruteforce, segsum):
+    """Keeps the inputs of every B1 call (a 3-D ``bruteforce.nn1``) and
+    every B2 call (``segsum.sorted_inputs``' outputs) made inside, each
+    tagged with ``calls["stage"]`` at the time, so that (g) holds the kernels
+    to their plain versions at the main path's own shapes. The kernels run
+    and count their launches as before."""
+    kernel_nn1, sorted_inputs = bruteforce.nn1, segsum.sorted_inputs
+    calls = {"stage": None, "nn1": [], "segsum": []}
+
+    def nn1(t, m, q, *args, **kw):
+        if q.shape[-1] == 3:
+            calls["nn1"].append((calls["stage"], t, m, q))
+        return kernel_nn1(t, m, q, *args, **kw)
+
+    def keep(*args):
+        out = sorted_inputs(*args)
+        calls["segsum"].append((calls["stage"], *out))
+        return out
+
+    bruteforce.nn1, segsum.sorted_inputs = nn1, keep
+    try:
+        yield calls
+    finally:
+        bruteforce.nn1, segsum.sorted_inputs = kernel_nn1, sorted_inputs
+
+
+def phase13_path_k(segsum, nn1_mod, street, record_b1, record_b2):
+    """Path K: descriptors, keypoints and clusters on path E's pair."""
+    from pcl_tpu_torch import features, segmentation
+    from pcl_tpu_torch.core.cloud import Cloud
+    from pcl_tpu_torch.core.transforms import transform_points
+    from pcl_tpu_torch.features import rops, shape_context
+    from pcl_tpu_torch.registration import ia, icp
+    from pcl_tpu_torch.search import bruteforce
+    from pcl_tpu_torch.tools.odometry import probed_cells
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        """A check of this phase, raised with the others at its end."""
+        if not cond:
+            print(f"phase 13: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    raw, P = path_k_scans(street)
+    gen = torch.Generator(device=raw[0].xyz.device)
+    # warm-up (libraries, allocator, the solvers' handles) on a quarter of scan 0
+    wc = raw[0].take(torch.arange(0, raw[0].capacity, 4, device=raw[0].xyz.device))
+    wv, _, _, _, _ = global_front(wc, k=16)
+    wk, _ = k_keypoints(wv, wc)
+    k_descriptors(wv, torch.nonzero(wk["iss"])[:, 0], gen.manual_seed(0))
+
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    with kernel_calls(bruteforce, segsum) as calls:
+        fronts, kps, ksecs = [], [], []
+        for i in (0, 1):
+            calls["stage"] = f"voxel grid, scan {i}"
+            v, fp, _, k, _ = global_front(raw[i], k=None if i == 0 else fronts[0][3])
+            fronts.append((v, fp, None, k))
+            calls["stage"] = f"SIFT, scan {i}"
+            kp, secs = k_keypoints(v, raw[i])
+            kps.append(kp)
+            ksecs.append(secs)
+            print(f"phase 13: (a) scan {i}: {v.capacity} voxels; keypoints "
+                  + ", ".join(f"{n} {int(m.sum())} ({secs[n] * 1e3:.1f} ms)"
+                              for n, m in kp.items())
+                  + f" (SIFT over the {raw[i].capacity} raw points) [{card_line()}]", flush=True)
+            expect(all(int(m.sum()) > 0 for m in kp.values()),
+                   f"(a) scan {i}: a detector found no keypoint")
+        tgt, src = fronts[0][0], fronts[1][0]
+        union = [kp["harris"] | kp["iss"] for kp in kps]
+        kidx = [torch.nonzero(u)[:, 0] for u in union]
+
+        # (b) descriptors
+        calls["stage"] = "descriptors"
+        desc = [k_descriptors(fronts[i][0], kidx[i], gen.manual_seed(E_SEED + i))
+                for i in (0, 1)]
+        for name in desc[0]:
+            outs = [d[name][0] for d in desc]
+            finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+            print(f"phase 13: (b) {name}: {list(outs[0].shape)} / {list(outs[1].shape)}, "
+                  f"{desc[0][name][1] * 1e3:.2f} / {desc[1][name][1] * 1e3:.2f} ms, peak "
+                  f"{desc[0][name][2]:.0f} / {desc[1][name][2]:.0f} MiB, finite {finite} "
+                  f"[{card_line()}]", flush=True)
+            expect(finite, f"(b) {name} is not finite")
+        shot_all = [d["SHOT (every voxel)"][0] for d in desc]
+        for i in (0, 1):
+            d = (desc[i]["SHOT (keypoints, surface)"][0] - shot_all[i][kidx[i]]).abs().max()
+            expect(float(d) <= 1e-6, f"(b) scan {i}: SHOT at the keypoints with the voxels as "
+                                     f"surface differs from the voxels' own rows by {float(d)}")
+        device_breakdown("phase 13 (SHOT at every voxel of scan 1)",
+                         lambda: features.estimate_shot(fronts[1][0], K_RADIUS, k=K_SHOT_K))
+        pers = [int(d["FPFH persistence"][0].sum()) for d in desc]
+        print(f"phase 13: (b) persistent FPFH voxels at {K_PERSISTENCE} m: {pers}; boundary "
+              f"voxels {[int(d['boundary'][0].sum()) for d in desc]}", flush=True)
+
+        # (c) matching: SHOT and FPFH of scan 1's keypoints to their nearest in scan 0's
+        def inlier_share(f1, f0):
+            nn = ia.feature_knn(f1[kidx[1]], torch.ones_like(kidx[1], dtype=torch.bool),
+                                f0[kidx[0]], torch.ones_like(kidx[0], dtype=torch.bool), 1)[:, 0]
+            truth = transform_points(torch.from_numpy(P).float().to(src.xyz.device),
+                                     src.xyz[kidx[1]])
+            gap = torch.linalg.vector_norm(truth - tgt.xyz[kidx[0][nn.long()]], dim=1)
+            return float((gap <= K_MATCH).float().mean())
+
+        share_shot = inlier_share(shot_all[1], shot_all[0])
+        share_fpfh = inlier_share(fronts[1][1], fronts[0][1])
+        print(f"phase 13: (c) {len(kidx[1])} scan-1 keypoints (Harris and ISS) matched into "
+              f"{len(kidx[0])} of scan 0 by their nearest descriptor: within {K_MATCH} m of the "
+              f"true counterpart SHOT {share_shot:.4f}, FPFH {share_fpfh:.4f}", flush=True)
+        skp, tkp = src.with_mask(union[1]), tgt.with_mask(union[0])
+        calls["stage"] = "prerejective sweep"
+        b1 = nn1_mod.nn1.launches
+        pre, psecs = timed(lambda: ia.prerejective_ransac(skp, shot_all[1], tkp, shot_all[0],
+                                                          **E_PRE_KW))
+        b1 = nn1_mod.nn1.launches - b1
+        calls["stage"] = "point-to-plane ICP"
+        cells = probed_cells(src, tgt, "icp", E_ICP_KW["max_corr_dist"])
+        ref = icp(src, tgt, init_transform=pre.transform, variant="point_to_plane", **E_ICP_KW,
+                  **cells)
+
+        def left(T):
+            d = T.double().cpu().numpy()[:3, 3] - P[:3, 3]
+            return math.hypot(d[0], d[1]), abs(d[2]), pose_gap(T, torch.from_numpy(P))[1]
+
+        g, r = left(pre.transform), left(ref.transform)
+        print(f"phase 13: (c) prerejective RANSAC on the SHOT matches ({E_PRE_KW}): "
+              f"{psecs * 1e3:.1f} ms, B1 {b1}, valid {bool(pre.valid)}, score "
+              f"{float(pre.error):.6f}; left {g[0]:.3e} m across and up, {g[1]:.3e} m along, "
+              f"{g[2]:.3e} rad; point-to-plane ICP {int(ref.iterations)} iterations: left "
+              f"{r[0]:.3e} m, {r[1]:.3e} m, {r[2]:.3e} rad", flush=True)
+        # the JAX package's CPU rehearsal on this pair (tests/rehearse_path_k.py)
+        # misses path E's limits too: 0.47% of the keypoints' SHOT matches are
+        # right (ROADMAP C54)
+        print("phase 13: (c) pose printed, not checked: the JAX package's CPU rehearsal on "
+              "this pair does not meet path E's limits either (PERF.md, path K)", flush=True)
+
+        # (d) clusters and their global descriptors
+        clusters = []
+        for i in (0, 1):
+            v = fronts[i][0]
+            calls["stage"] = f"ESF midpoints, scan {i}"
+            (labels, n_all), csecs = timed(lambda: segmentation.euclidean_clusters(
+                v, K_CLUSTER_TOLERANCE, min_cluster_size=K_CLUSTER_MIN))
+            ids = torch.unique(labels[labels >= 0])
+            cl = [live_rows(v.with_mask(labels == c)) for c in ids]
+            out, dsecs = timed(lambda: [k_cluster_descriptors(c, gen.manual_seed(E_SEED))
+                                        for c in cl])
+            clusters.append((cl, out))
+            finite = all(bool(torch.isfinite(x).all()) for o in out for x in o.values())
+            vfh_ok = all(all(abs(float(o["VFH"][45 * b:45 * (b + 1)].sum()) - 100.0) < 1e-2
+                             for b in range(4))
+                         and abs(float(o["VFH"][180:].sum()) - 100.0) < 1e-2 for o in out)
+            print(f"phase 13: (d) scan {i}: {n_all} components, {len(cl)} clusters of at least "
+                  f"{K_CLUSTER_MIN} voxels (tolerance {K_CLUSTER_TOLERANCE} m) in "
+                  f"{csecs * 1e3:.1f} ms; sizes "
+                  f"{sorted((c.capacity for c in cl), reverse=True)[:12]}; eight global "
+                  f"descriptors each in {dsecs * 1e3:.1f} ms; finite {finite}, VFH blocks sum "
+                  f"to 100 {vfh_ok}", flush=True)
+            expect(len(cl) >= 5 and finite and vfh_ok, f"(d) scan {i}: clusters or descriptors")
+        # the same car in both scans: clusters of car size whose centroids meet
+        # under the known motion
+        car = None
+        cents = [[c.xyz.mean(0) for c in cl] for cl, _ in clusters]
+        T = torch.from_numpy(P).float().to(src.xyz.device)
+        for j1, c1 in enumerate(clusters[1][0] if cents[0] else []):
+            ext = (c1.xyz.amax(0) - c1.xyz.amin(0)).cpu().numpy()
+            if not (math.hypot(ext[0], ext[2]) >= 2.0 and ext[1] <= 2.5):
+                continue
+            w = transform_points(T, cents[1][j1][None])[0]
+            d0 = [float((w - c0).norm()) for c0 in cents[0]]
+            j0 = int(np.argmin(d0))
+            if d0[j0] <= 1.0 and (car is None or c1.capacity > car[2]):
+                car = (j0, j1, c1.capacity)
+        expect(car is not None, "(d) no car seen in both scans")
+        if car is not None:
+            h0, h1 = clusters[0][1][car[0]]["CRH"], clusters[1][1][car[1]]["CRH"]
+            ang, score = features.crh_align(h0, h1, 3)
+            print(f"phase 13: (d) the car of {clusters[0][0][car[0]].capacity} / {car[2]} "
+                  f"voxels in both scans: crh_align roll {[round(float(a), 4) for a in ang]} "
+                  f"rad, scores {[round(float(x), 5) for x in score]}", flush=True)
+
+    record_b1["launches_by_path"]["K"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"]["K"] = segsum.segment_sum_sorted.launches
+    print(f"phase 13: path K launched B1 {nn1_mod.nn1.launches} times, B2 "
+          f"{segsum.segment_sum_sorted.launches} times", flush=True)
+    expect(segsum.segment_sum_sorted.launches == 2 + 2 * K_SIFT["n_octaves"],
+           "path K's B2 launches are not one a downsample and one a SIFT octave")
+    n_clusters = sum(len(cl) for cl, _ in clusters)
+    stages = [c[0] for c in calls["nn1"]]
+    expect(len(calls["nn1"]) == nn1_mod.nn1.launches
+           and len(calls["segsum"]) == segsum.segment_sum_sorted.launches
+           and stages.count("prerejective sweep") == b1
+           and sum(s_.startswith("SIFT") for s_ in stages) == 2
+           and sum(s_.startswith("ESF") for s_ in stages) == n_clusters,
+           f"path K's kernel calls were not all kept for (g): B1 {stages}, B2 "
+           f"{[c[0] for c in calls['segsum']]}")
+
+    # (e) invariance: scan 1's voxels moved by a seeded rigid motion
+    rng = np.random.default_rng(E_SEED + 13)
+    M = np.eye(4)
+    M[:3, :3] = axis_rotation(rng.normal(size=3), math.radians(K_MOVE[1]))
+    M[:3, 3] = rng.normal(size=3) * K_MOVE[0] / math.sqrt(3.0)
+    Mt = torch.from_numpy(M).float().to(src.xyz.device)
+    moved = Cloud(xyz=transform_points(Mt, src.xyz), mask=src.mask,
+                  attrs=dict(src.attrs, normal=src.attrs["normal"] @ Mt[:3, :3].T))
+    # rows with a decision float64 finds within 1e-4 of its cut (a facade
+    # voxel on the 0.3 m lattice has a near-isotropic in-plane covariance,
+    # SHOT's sign vote ties, and lattice neighbours sit on the sector lines)
+    # are counted apart (C45, C49)
+    inv_lines = []
+    for name, fn in (("SHOT", lambda c: features.estimate_shot(c, K_RADIUS, k=K_SHOT_K)),
+                     ("USC", lambda c: shape_context.estimate_usc(c, K_RADIUS)[0]),
+                     ("RoPS", lambda c: rops.estimate_rops(c, K_RADIUS)[0])):
+        a = fn(src) if name != "SHOT" else shot_all[1]
+        b = fn(moved)
+        f = torch.from_numpy(invariance_firm(src, name)).to(a.device)
+        off, worst = row_agreement(a[f], b[f], K_INVARIANCE_TOL)
+        loose, _ = row_agreement(a[~f], b[~f], K_INVARIANCE_TOL)
+        inv_lines.append(f"{name}: of {int(f.sum())} firm rows {off} beyond "
+                         f"{K_INVARIANCE_TOL:g} (max {worst:.2e}); of the other "
+                         f"{int((~f).sum())}, {loose} beyond")
+        expect(off <= K_INVARIANCE_SHARE * int(f.sum()),
+               f"(e) {name} moved with the cloud: {off} firm rows beyond {K_INVARIANCE_TOL}")
+    print(f"phase 13: (e) scan 1 moved by {K_MOVE[0]} m and {K_MOVE[1]} deg: "
+          + "; ".join(inv_lines), flush=True)
+
+    # (f) the card against the CPU on 2,048-voxel subclouds
+    for i in (0, 1):
+        lines, fsecs = timed(lambda: k_card_vs_cpu(fronts[i][0], raw[i], expect))
+        print(f"phase 13: (f) scan {i}, card against CPU on {K_CPU_POINTS} voxels "
+              f"({fsecs:.1f} s): " + "; ".join(lines), flush=True)
+
+    # (g) every kernel call of (a)-(d) against its plain version, at the
+    # shapes the main path gave it, bitwise; the prerejective sweep at its
+    # full shape, the plain version on its first K_PLAIN_ROWS queries
+    shapes1, esf = [], []
+    for stage, t_, m_, q_ in calls["nn1"]:
+        n = min(len(q_), K_PLAIN_ROWS)
+        ik, dk = nn1_mod.nn1(t_, m_, q_)
+        ip, dp = nn1_mod.nn1_plain(t_, m_, q_[:n])
+        nd, dd = int((ik[:n] != ip).sum()), float((dk[:n] - dp).abs().max())
+        expect(nd == 0 and dd == 0.0, f"(g) B1 differs from its plain version at {stage} "
+                                      f"{len(q_)} x {len(t_)}: {nd} indices, d2 by {dd}")
+        ms = cuda_ms(lambda: nn1_mod.nn1(t_, m_, q_), reps=5)
+        plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t_, m_, q_[:n]), reps=1)
+        bound_s, bound_by = nn1_bound_ms(len(q_), len(t_))
+        if stage.startswith("SIFT"):
+            stage = f"{stage}, snap"
+        row = {"case": stage, "q": len(q_), "m": len(t_), "ms": ms, "plain_ms": plain_ms,
+               "plain_rows": n, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+               "max_abs_err": dd}
+        if stage.startswith("ESF"):
+            esf.append(row)
+            continue
+        shapes1.append(row)
+        print(f"phase 13: (g) nn1 at {stage} {len(q_)} x {len(t_)}: {ms:.3f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms ({bound_by}), plain {plain_ms:.2f} ms on {n} queries; "
+              f"{nd} indices differ, max |d2 diff| {dd:.3e} [{card_line()}]", flush=True)
+    # the clusters' ESF calls in one row: times and bounds summed over the calls
+    by = [r["bound_by"] for r in esf]
+    shapes1.append({"case": f"ESF midpoints ({len(esf)} calls)", "q": sum(r["q"] for r in esf),
+                    "shapes": [[r["q"], r["m"]] for r in esf],
+                    **{k: sum(r[k] for r in esf) for k in ("ms", "plain_ms", "bound_ms")},
+                    "bound_by": max(set(by), key=by.count),
+                    "max_abs_err": max(r["max_abs_err"] for r in esf)})
+    print(f"phase 13: (g) nn1 at the clusters' ESF midpoints, {len(esf)} calls of "
+          f"{min(r['q'] for r in esf)}-{max(r['q'] for r in esf)} x "
+          f"{min(r['m'] for r in esf)}-{max(r['m'] for r in esf)}: {shapes1[-1]['ms']:.3f} ms "
+          f"in all, bound {shapes1[-1]['bound_ms']:.4f} ms, plain {shapes1[-1]['plain_ms']:.2f} "
+          f"ms; max |d2 diff| {shapes1[-1]['max_abs_err']:.3e} [{card_line()}]", flush=True)
+    record_b1["path_k"] = shapes1
+    shapes2, octave = [], {}
+    for stage, vals, seg in calls["segsum"]:
+        if stage.startswith("SIFT"):
+            octave[stage] = octave.get(stage, -1) + 1
+            stage = f"{stage}, octave {octave[stage]}"
+        k_ = segsum.segment_sum_sorted(vals, seg)
+        p_ = segsum.segment_sum_sorted_plain(vals, seg)
+        err = float((k_ - p_).abs().max())
+        n_seg = int(seg[seg < len(seg)].max()) + 1
+        ms = cuda_ms(lambda: segsum.segment_sum_sorted(vals, seg), reps=20)
+        plain_ms = cuda_ms(lambda: segsum.segment_sum_sorted_plain(vals, seg), reps=5)
+        bound_s, bound_by = segsum_bound_ms(vals.shape[0], vals.shape[1], n_seg)
+        # torch.segment_reduce from segment lengths (the invalid tail one more)
+        lengths = torch.bincount(torch.clamp(seg, max=n_seg).long(), minlength=n_seg + 1)
+        library_ms = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths), reps=20)
+        # runs of up to 64 rows add in row order in both (bitwise); a longer
+        # run (a dense voxel by the scanner) is shared by a block, in another order
+        scale = float(p_.abs().max())
+        print(f"phase 13: (g) segsum at {stage} {list(vals.shape)} -> {n_seg} voxels: "
+              f"{ms * 1e3:.1f} us, bound {bound_s * 1e6:.2f} us ({bound_by}), plain "
+              f"{plain_ms * 1e3:.1f} us, torch.segment_reduce {library_ms * 1e3:.1f} us; max "
+              f"|kernel - plain| {err:.3e} [{card_line()}]", flush=True)
+        expect(err <= 1e-6 * scale, f"(g) B2 differs from its plain version at {stage}")
+        shapes2.append({"case": stage, "n": vals.shape[0], "w": vals.shape[1],
+                        "segments": n_seg, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_s * 1e3, "bound_by": bound_by, "max_abs_err": err,
+                        "library_ms": library_ms})
+    record_b2["path_k"] = shapes2
+    check(not failed, "path K: " + "; ".join(failed))
+    return {n: [d[n][1] for d in desc] for n in desc[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3361,11 +4106,13 @@ def main() -> int:
     lap("phase 11")
     out_j = phase12_path_j(segsum, nn1_mod, scans, golden, record, record_b2)
     lap("phase 12")
+    times_k = phase13_path_k(segsum, nn1_mod, street, record, record_b2)
+    lap("phase 13")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
         # H (the rest of registration), I (the sharded functions, one rank),
-        # J (the filter front end)
+        # J (the filter front end), K (descriptors, keypoints, clusters)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -3387,6 +4134,8 @@ def main() -> int:
                       for c in table_i)
           + f"; path J ATE {out_j['ate']:.6f} m, "
           + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in out_j.items() if k != "ate")
+          + "; path K ms per scan "
+          + ", ".join(f"{k} {v[0] * 1e3:.1f}/{v[1] * 1e3:.1f}" for k, v in times_k.items())
           + f" [{card}]", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

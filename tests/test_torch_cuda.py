@@ -914,3 +914,59 @@ def test_pose_graph_sharded_backend_on_card_leaves_no_group(cuda):
     assert np.abs(sharded[:, :3, 3] - cg[:, :3, 3]).max() <= 1e-4
     R = np.einsum("vij,vkj->vik", sharded[:, :3, :3], cg[:, :3, :3])
     assert np.abs(R - np.eye(3)).max() <= 1e-4
+
+
+def _street_corner(seed=0, n=3000):
+    """Ground, a facade, a box and a ball with 5 mm of noise, an intensity,
+    and normals from the port."""
+    rng = np.random.default_rng(seed)
+    m = n // 4
+    g = rng.uniform([-2, 0, -2], [2, 0, 2], (m, 3))
+    w = rng.uniform([-2, 0, 2], [2, 2, 2], (m, 3))
+    box = rng.uniform([-0.5, 0, -0.3], [0.5, 0.6, 0.3], (m, 3))
+    box[np.arange(m), rng.integers(0, 3, m)] = 0.5
+    s = rng.normal(size=(n - 3 * m, 3))
+    ball = 0.3 * s / np.linalg.norm(s, axis=1, keepdims=True) + [1.0, 0.5, 0.5]
+    p = np.concatenate([g, w, box, ball])
+    p = (p + rng.normal(scale=0.005, size=p.shape)).astype(np.float32)
+    inten = (0.6 + 0.2 * np.sin(5 * p[:, 0]) * np.cos(3 * p[:, 2])).astype(np.float32)
+    return p, inten
+
+
+def test_shot_on_card_repeats_bitwise_and_matches_cpu(cuda):
+    """SHOT's histograms go through ``index_put_(accumulate=True)``, which
+    adds in index order on the card too (a stable sort): two runs are
+    bitwise equal, and equal to the CPU run to 2e-5 on unit rows but for
+    rows whose decisions float rounding turns (counted, at most 5%)."""
+    from pcl_tpu_torch.features import shot
+
+    p, _ = _street_corner()
+    c = features.estimate_normals(make_cloud(p, device=cuda), k=12)
+    a = shot.estimate_shot_interpolated(c, 0.3)
+    b = shot.estimate_shot_interpolated(c, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    cpu = c.__class__(xyz=c.xyz.cpu(), mask=c.mask.cpu(),
+                      attrs={k: v.cpu() for k, v in c.attrs.items()})
+    err = (a.cpu() - shot.estimate_shot_interpolated(cpu, 0.3)).abs().amax(1)
+    assert float((err > 2e-5).float().mean()) <= 0.05
+
+
+def test_sift_launches_b2_an_octave_and_b1_once(cuda):
+    from pcl_tpu_torch.keypoints import sift
+
+    p, inten = _street_corner(1, 20000)
+    c = make_cloud(p, device=cuda).with_attrs(intensity=torch.from_numpy(inten).to(cuda))
+    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    mask, scale = sift.sift_keypoints(c, 0.05, n_octaves=3)
+    torch.cuda.synchronize()
+    assert segsum.segment_sum_sorted.launches - b2 == 3
+    assert nn1_mod.nn1.launches - b1 == 1
+    assert int(mask.sum()) > 0 and bool((scale[mask] > 0).all())
+    kp = sift.sift_keypoints_cloud(c, 0.05, n_octaves=3)
+    cpu = sift.sift_keypoints_cloud(make_cloud(p, device="cpu").with_attrs(
+        intensity=torch.from_numpy(inten)), 0.05, n_octaves=3)
+    # the octaves are voxel grids, bitwise alike on both devices (C11), and
+    # the difference of Gaussians adds in another order: the same keypoints
+    # but for extrema within rounding of a neighbour
+    assert abs(int(kp.mask.sum()) - int(cpu.mask.sum())) <= 0.05 * int(cpu.mask.sum()) + 1

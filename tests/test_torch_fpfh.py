@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import float64_cuts as F
 from pcl_tpu import features as jfeat
 from pcl_tpu.core.cloud import make_cloud as jmake
 from pcl_tpu.features import fpfh as jfp
@@ -30,9 +31,6 @@ from pcl_tpu.search import hashgrid as jhg
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL
 from pcl_tpu_torch.core.cloud import make_cloud as tmake
 from pcl_tpu_torch.features import fpfh as tfp
-
-EDGE = 1e-5
-
 
 def _scene(seed=0, n=600):
     """tests/test_ia.py's asymmetric scene."""
@@ -65,56 +63,6 @@ def clouds():
     return jc, tc
 
 
-def _edge_gap(f, lo, hi, nbins):
-    """Distance of f (in its own units) from the nearest bin edge."""
-    u = nbins * (f - lo) / (hi - lo)
-    return np.abs(u - np.round(u)) * (hi - lo) / nbins
-
-
-def _features64(p1, n1, p2, n2, swap):
-    """pair_features in float64 with the source chosen by ``swap``:
-    ``(f1, f2, f3, |v|, hypot of atan2's arguments)``."""
-    p1, n1, p2, n2 = (np.broadcast_to(x, np.broadcast_shapes(
-        p1.shape, n1.shape, p2.shape, n2.shape)).astype(np.float64) for x in (p1, n1, p2, n2))
-    d = p2 - p1
-    inv = 1.0 / np.maximum(np.linalg.norm(d, axis=-1), 1e-12)
-    sw = swap[..., None]
-    n1c, n2c, dc = np.where(sw, n2, n1), np.where(sw, n1, n2), np.where(sw, -d, d)
-    f3 = np.sum(n1c * dc, -1) * inv
-    v = np.cross(dc, n1c)
-    vn = np.linalg.norm(v, axis=-1)
-    v = v / np.maximum(vn, 1e-12)[..., None]
-    w = np.cross(n1c, v)
-    y, x = np.sum(w * n2c, -1), np.sum(n1c * n2c, -1)
-    return np.arctan2(y, x), np.sum(v * n2c, -1), f3, vn * inv, np.hypot(y, x)
-
-
-def _bins(f1, f2, f3, nbins):
-    b = [np.clip(np.floor(nbins * (f - lo) / (hi - lo)), 0, nbins - 1)
-         for f, lo, hi in ((f1, -math.pi, math.pi), (f2, -1.0, 1.0), (f3, -1.0, 1.0))]
-    return np.stack(b, -1)
-
-
-def _unsure(p1, n1, p2, n2, nbins):
-    """Pairs whose bins a rounding can change: a feature within EDGE of a bin
-    edge (atan2's cut at +-pi included), the source choice within EDGE of
-    flipping where the other choice bins differently, or a degenerate frame
-    (``|d x n1|`` or both atan2 arguments within EDGE of 0)."""
-    a1 = np.sum(n1 * (p2 - p1), -1)
-    a2 = np.sum(n2 * (p2 - p1), -1)
-    dn = np.maximum(np.linalg.norm(np.broadcast_to(p2 - p1, np.broadcast_shapes(
-        p1.shape, p2.shape)), axis=-1), 1e-12)
-    swap = np.abs(a1) < np.abs(a2)
-    f1, f2, f3, vn, r = _features64(p1, n1, p2, n2, swap)
-    g1, g2, g3, _, _ = _features64(p1, n1, p2, n2, ~swap)
-    near = ((_edge_gap(f1, -math.pi, math.pi, nbins) <= EDGE)
-            | (_edge_gap(f2, -1.0, 1.0, nbins) <= EDGE)
-            | (_edge_gap(f3, -1.0, 1.0, nbins) <= EDGE))
-    flip = (np.abs(np.abs(a1) - np.abs(a2)) / dn <= EDGE) & np.any(
-        _bins(f1, f2, f3, nbins) != _bins(g1, g2, g3, nbins), -1)
-    return near | flip | (vn <= EDGE) | (r <= EDGE)
-
-
 def test_pair_features_match_jax():
     rng = np.random.default_rng(1)
     p1, p2 = rng.normal(size=(2, 4000, 3)).astype(np.float32)
@@ -129,7 +77,7 @@ def test_pair_features_match_jax():
     got = tfp.pair_features(*(torch.from_numpy(a) for a in (p1, n1, p2, n2)))
     # rows 5-14 are frames that rounding decides: n2 perpendicular to d and
     # n1, or n1 on the connecting line
-    sure = ~_unsure(p1, n1, p2, n2, 11)
+    sure = ~F.pair_unsure(p1, n1, p2, n2, 11)
     sure[5:15] = False          # the crafted degenerate frames, whatever the margin
     assert sure.mean() > 0.99
     np.testing.assert_array_equal(got[4].numpy()[sure], np.asarray(want[4])[sure])
@@ -155,13 +103,10 @@ def test_soft_hist_matches_jax():
 
 
 def _firm_points(jc, idx, valid, nbins=11):
-    """Per point: True when none of its pairs has a feature within EDGE of a
-    bin edge (JAX's values)."""
-    xyz, nrm = np.asarray(jc.xyz), np.asarray(jc.attrs["normal"])
-    ic = np.clip(np.asarray(idx), 0, len(xyz) - 1)
-    near = _unsure(xyz[:, None], nrm[:, None], xyz[ic], nrm[ic], nbins)
-    self_pair = np.all(xyz[ic] == xyz[:, None], axis=-1)
-    return ~(near & np.asarray(valid) & ~self_pair).any(axis=1)
+    """Per point: True when none of its pairs has a feature within ``F.EDGE``
+    of a bin edge (JAX's values)."""
+    return F.spfh_firm(np.asarray(jc.xyz), np.asarray(jc.attrs["normal"]), np.asarray(idx),
+                       np.asarray(valid), nbins)
 
 
 def test_spfh_and_fpfh_core_match_jax(clouds):
@@ -179,8 +124,7 @@ def test_spfh_and_fpfh_core_match_jax(clouds):
     assert firm.mean() > 0.9
     np.testing.assert_allclose(got_s.numpy()[firm], np.asarray(want_s)[firm], atol=1e-4)
     # FPFH mixes the neighbours' SPFH rows: firm when they all are
-    ic = np.clip(np.asarray(idx), 0, len(firm) - 1)
-    firm_f = firm & np.all(firm[ic] | ~np.asarray(valid), axis=1)
+    firm_f = F.fpfh_firm(firm, np.asarray(idx), np.asarray(valid))
     assert firm_f.mean() > 0.7
     np.testing.assert_allclose(got_f.numpy()[firm_f], np.asarray(want_f)[firm_f], atol=1e-4)
 
@@ -208,8 +152,7 @@ def test_estimate_fpfh_matches_jax(clouds, backend):
     jv = jv & jc.mask[:, None]
     same = _same_lists(jidx, tidx)
     firm = _firm_points(jc, jidx, jv) & same
-    ic = np.clip(np.asarray(jidx), 0, 639)
-    ok = firm & np.all(firm[ic] | ~np.asarray(jv), axis=1) & np.asarray(jc.mask)
+    ok = F.fpfh_firm(firm, np.asarray(jidx), np.asarray(jv)) & np.asarray(jc.mask)
     assert ok.sum() > 0.6 * 600
     np.testing.assert_allclose(got.numpy()[ok], want[ok], atol=1e-4)
     sums = got.numpy()[:600].reshape(600, 3, 11).sum(-1)
@@ -228,7 +171,7 @@ def test_estimate_pfh_matches_jax(clouds):
     ic = np.clip(np.asarray(jidx), 0, 639)
     pp, nn = xyz[ic], nrm[ic]
     same_pt = np.all(pp[:, :, None] == pp[:, None], axis=-1)
-    near = (_unsure(pp[:, :, None], nn[:, :, None], pp[:, None], nn[:, None], 5)
+    near = (F.pair_unsure(pp[:, :, None], nn[:, :, None], pp[:, None], nn[:, None], 5)
             & ~same_pt).any(axis=(1, 2))
     ok = _same_lists(jidx, tidx) & ~near & np.asarray(jc.mask)
     assert ok.sum() > 0.6 * 600

@@ -25,6 +25,9 @@ from pcl_tpu.tools import compute_hausdorff as j_hausdorff
 from pcl_tpu.tools import icp2d as j_icp2d
 from pcl_tpu.tools import iterative_closest_point as j_iter_icp
 from pcl_tpu.tools import ndt2d as j_ndt2d
+from pcl_tpu.tools import boundary_estimation as j_boundary
+from pcl_tpu.tools import spin_estimation as j_spin
+from pcl_tpu.tools import vfh_estimation as j_vfh
 
 from pcl_tpu_torch import io as tio
 from pcl_tpu_torch.core.cloud import make_cloud, to_numpy
@@ -44,6 +47,9 @@ from pcl_tpu_torch.tools import compute_hausdorff as t_hausdorff
 from pcl_tpu_torch.tools import icp2d as t_icp2d
 from pcl_tpu_torch.tools import iterative_closest_point as t_iter_icp
 from pcl_tpu_torch.tools import ndt2d as t_ndt2d
+from pcl_tpu_torch.tools import boundary_estimation as t_boundary
+from pcl_tpu_torch.tools import spin_estimation as t_spin
+from pcl_tpu_torch.tools import vfh_estimation as t_vfh
 
 CPU = ["--device", "cpu"]
 
@@ -455,3 +461,54 @@ def test_icp2d_tool(planar, capsys, tmp_path):
     assert line_t.startswith("[icp2d] t=(")
     np.testing.assert_allclose(_numbers(line_t), _numbers(line_j), atol=1e-3)
     np.testing.assert_allclose(_xyz(out_t)[0], _xyz(out_j)[0], atol=1e-3)
+
+
+def test_vfh_estimation_tool(scans, capsys, tmp_path):
+    """VFH of a scan: both tools estimate their own normals (1e-5 apart,
+    ROADMAP C9), so a point whose pair feature lies on a bin edge may vote
+    in the next bin: the descriptors agree to two votes (2 x 100 / 1500) a
+    bin, and each block sums to 100 on both."""
+    f = scans[0][0]
+    out_t, out_j = str(tmp_path / "t.npy"), str(tmp_path / "j.npy")
+    assert t_vfh.main([f, out_t, "-k", "12", *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_vfh.main([f, out_j, "-k", "12"]) == 0
+    line_j = capsys.readouterr().out
+    assert line_t.startswith("[vfh_estimation] 1500 pts -> VFH[308]")
+    assert line_t.split("(")[0] == line_j.split("(")[0]
+    vt, vj = np.load(out_t), np.load(out_j)
+    assert vt.shape == vj.shape == (308,)
+    assert np.abs(vt - vj).max() <= 2 * 100.0 / 1500 + 1e-4
+    for blk in (slice(0, 45), slice(45, 90), slice(90, 135), slice(135, 180), slice(180, 308)):
+        assert abs(vt[blk].sum() - 100.0) < 1e-3
+
+
+def test_spin_estimation_tool(scans, capsys, tmp_path):
+    """Spin images of a scan from each tool's own normals: rows agree to
+    1e-5 wherever no neighbour lies on a bin edge; 99% of the rows here."""
+    f = scans[0][0]
+    out_t, out_j = str(tmp_path / "t.npy"), str(tmp_path / "j.npy")
+    assert t_spin.main([f, out_t, "-radius", "0.3", "-k", "12", *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_spin.main([f, out_j, "-radius", "0.3", "-k", "12"]) == 0
+    assert line_t == capsys.readouterr().out == \
+        "[spin_estimation] 1500 pts -> spin images (1500, 153)\n"
+    st, sj = np.load(out_t), np.load(out_j)
+    assert (np.abs(st - sj).max(1) <= 1e-5).mean() >= 0.99
+
+
+def test_boundary_estimation_tool(scans, capsys, tmp_path):
+    """Boundary points of a scan: the same points on both, but for a point
+    whose largest angular gap lies within the normals' 1e-5 of the angle."""
+    f = scans[0][0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    assert t_boundary.main([f, out_t, "-radius", "0.3", *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_boundary.main([f, out_j, "-radius", "0.3"]) == 0
+    line_j = capsys.readouterr().out
+    bt, bj = _xyz(out_t)[0], _xyz(out_j)[0]
+    assert 20 <= len(bj) < 1500
+    common = len({tuple(p) for p in bt} & {tuple(p) for p in bj})
+    assert common >= len(bj) - 2 and len(bt) <= len(bj) + 2
+    if len(bt) == len(bj):
+        assert line_t == line_j
