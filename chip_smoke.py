@@ -124,13 +124,29 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    subclouds; (g) B1 and B2 against their plain versions on every call
    (a)-(d) made: SIFT's snaps, the prerejective sweep at its full shape
    (the plain version on its first K_PLAIN_ROWS queries), each cluster's
-   ESF midpoints, the voxel grids and SIFT's octaves.
+   ESF midpoints, the voxel grids and SIFT's octaves;
+14. path L, surface reconstruction and the rest of segmentation on path G's
+   room, frame 0 at VGA with an RGB per surface: (a) organized multi-plane
+   segmentation at PCL's demo settings on k-NN normals, organized connected
+   components and the organized fast mesh; (b) PCL's polygonal-prism
+   tabletop flow on the floor (convex and concave hulls, the prism,
+   Euclidean clusters: one per object); (c) on the 1 cm voxels (B2) MLS,
+   smoothed-surface keypoints, greedy projection triangulation, Hoppe at 128^3
+   (B1), Poisson at depth 8, RBF on the box, mesh smoothing, B-splines on the
+   back wall, the MLS upsampling modes, grid projection (B1), surfel
+   smoothing, bilateral upsampling and texture mapping; (d) supervoxels,
+   LCCP, CPC, min-cut, GrabCut, seeded hue, the random walker and the unary
+   classifier on FPFH; (e) the planes, clusters, meshes and segmentations
+   against the room, and the functions on the card against the CPU on 2,048
+   voxels and an 80 x 60 frame; (f) every B1 and B2 call of the path against
+   its plain version at its own shape.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
 0.08) m; path C's street and scans come from seed 0, the street with alleys
 from seed 7, path E's two scans of path C's street from seed 5, path F's route
-from seed 8, path G's room and camera from seed 9. Any failed check
+from seed 8, path G's room and camera from seed 9, path L's frame noise and
+colours from seed 10. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -2155,8 +2171,9 @@ def render_depth(pose: np.ndarray, intr, H: int, W: int, rng=None):
     return np.where(ok, depth, 0.0).astype(np.float32), n_cam
 
 
-def room_distance(p: np.ndarray) -> np.ndarray:
-    """Unsigned distance of world points [N,3] to the room's surfaces."""
+def room_parts(p: np.ndarray) -> np.ndarray:
+    """Unsigned distances ``[6, N]`` of world points [N,3] to the room's
+    surfaces: floor, back wall, side wall, box, sphere, cylinder."""
     out = []
     for axis, at, bounds in G_PLANES:
         others = [a for a in range(3) if a != axis]
@@ -2174,7 +2191,12 @@ def room_distance(p: np.ndarray) -> np.ndarray:
     side = np.hypot(rho - r, dy)
     cap = np.hypot(p[:, 1] - y0, np.maximum(rho - r, 0))
     out.append(np.minimum(side, cap))
-    return np.min(out, axis=0)
+    return np.stack(out)
+
+
+def room_distance(p: np.ndarray) -> np.ndarray:
+    """Unsigned distance of world points [N,3] to the room's surfaces."""
+    return room_parts(p).min(axis=0)
 
 
 def handheld(rng, n: int) -> np.ndarray:
@@ -3729,6 +3751,426 @@ def _patch_mesh(n=20):
     return xyz, np.concatenate([np.stack([a, b, c], 1), np.stack([b, d, c], 1)])
 
 
+# path L: surface reconstruction and the rest of segmentation on path G's room
+L_SEED = 10
+L_NAMES = ("floor", "back wall", "side wall", "box", "sphere", "cylinder")
+L_OBJECTS = (3, 4, 5)
+L_COLORS = np.array([[0.30, 0.40, 0.60], [0.85, 0.82, 0.70], [0.60, 0.75, 0.90],
+                     [0.85, 0.15, 0.10], [0.15, 0.70, 0.20], [0.15, 0.30, 0.85]], np.float32)
+# the room's planes in the world, normals into the room: n.p + d = 0
+L_PLANE_TRUTH = {0: ((0.0, -1.0, 0.0), 1.0), 1: ((0.0, 0.0, -1.0), 2.7),
+                 2: ((-1.0, 0.0, 0.0), 1.3)}
+L_CENTERS = {3: tuple(0.5 * (np.array(G_BOX[0]) + np.array(G_BOX[1]))), 4: G_SPHERE[0],
+             5: (G_CYLINDER[0][0], 0.5 * sum(G_CYLINDER[2]), G_CYLINDER[0][1])}
+L_FLOOR_SEED = (0.6, 1.0, 1.0)             # a floor point clear of the objects (world)
+L_SAME_PLANE = (math.radians(5.0), 0.05)    # rad, m: two regions of one plane
+# min-cut's radius for the box: its half diagonal (0.32 m) and 0.13 m; at 0.32 m its
+# faces' source and sink links are equal and the cut keeps nothing (a CPU run)
+L_BOX_RADIUS = 0.45
+L_FULL = dict(
+    shape=G_SHAPE, intr=G_INTR, leaf=0.01, normal_k=16, fast_mesh_edge=0.05,
+    # the frame's normals: k-NN over PCL's demo's 20 x 20 smoothing window (C63)
+    frame_normal_k=400,
+    # PCL's organized multi-plane segmentation demo
+    planes=dict(min_inliers=10_000, angular_threshold=0.0349, distance_threshold=0.02),
+    cc_distance=0.02, prism=(0.01, 0.6), hull_inset=0.05, concave_alpha=0.1,
+    cluster=dict(tolerance=0.02, min_cluster_size=500),
+    mls_radius=0.03, smoothed=(0.02, 0.03, 0.05),              # PCL's resampling tutorial
+    # PCL's greedy projection tutorial
+    gp3=dict(search_radius=0.025, mu=2.5, k=100, min_angle=math.pi / 18,
+             max_angle=2 * math.pi / 3, eps_angle=math.pi / 4),
+    hoppe_res=128, poisson_depth=8, rbf_res=32,
+    # PCL's supervoxel tutorial's weights
+    sv=dict(seed_resolution=0.1, color_importance=0.2, spatial_importance=0.4,
+            normal_importance=1.0, max_seeds=4096),
+    mincut=dict(sigma=0.25, source_weight=0.8, k=14),          # PCL's min-cut tutorial
+    walker=dict(k=10, sigma=0.05, n_labels=4, cg_iters=200),
+    hue=dict(cluster_tolerance=0.02, delta_hue=0.1),          # k 12: the JAX one's only k (C67)
+    upsample=dict(search_radius=0.03, upsampling_radius=0.01, step_size=0.005,
+                  density=40_000.0, voxel_size=0.01),
+    grid_res=48, surfel_radius=0.03, bspline_stride=4, fpfh_k=16, grab_margin=0.05)
+# 80 x 60 for the CPU tests (``tests/test_torch_path_l.py``): radii grown with the pixels
+L_SMALL = dict(
+    L_FULL, shape=(60, 80), intr=(G_INTR[0] / 8, G_INTR[1] / 8, (G_INTR[2] + 0.5) / 8 - 0.5,
+                                  (G_INTR[3] + 0.5) / 8 - 0.5),
+    leaf=0.04, fast_mesh_edge=0.2, frame_normal_k=16,
+    planes=dict(min_inliers=150, angular_threshold=0.1, distance_threshold=0.05),
+    cc_distance=0.1, hull_inset=0.1, concave_alpha=0.3,
+    cluster=dict(tolerance=0.1, min_cluster_size=5), mls_radius=0.12, smoothed=(0.08, 0.12, 0.2),
+    gp3=dict(L_FULL["gp3"], search_radius=0.1, k=30), hoppe_res=32, poisson_depth=5, rbf_res=16,
+    sv=dict(L_FULL["sv"], seed_resolution=0.25, max_seeds=512),
+    walker=dict(k=10, sigma=0.1, n_labels=4, cg_iters=200),
+    hue=dict(cluster_tolerance=0.1, delta_hue=0.1),
+    upsample=dict(search_radius=0.12, upsampling_radius=0.04, step_size=0.02, density=2500.0,
+                  voxel_size=0.04),
+    grid_res=16, surfel_radius=0.12, bspline_stride=1, grab_margin=0.1)
+# limits of (e): 1.5 x the JAX package's CPU rehearsal (tests/rehearse_path_l.py jax) and
+# the port's card run, which read alike to 1e-5 (the IoU: their value / 1.5): plane 0.03426
+# deg and 0.001442 m; mesh medians 0.005027 / 0.022965 / 0.004412 m, p99 0.025745 / 0.92383
+# / 0.27466 m (Hoppe's far-field sheets, C69); impurity 0.005332; min-cut IoU 0.95083
+L_LIMITS = dict(plane_deg=0.0514, plane_m=0.00216,
+                mesh_median=dict(gp3=0.00754, hoppe=0.0345, poisson=0.00662),
+                mesh_p99=dict(gp3=0.0386, hoppe=1.386, poisson=0.412),
+                sv_impurity=0.0080, mincut_iou=0.634)
+
+
+def to_world(p: np.ndarray, pose: np.ndarray) -> np.ndarray:
+    return (np.asarray(p, np.float64) @ pose[:3, :3].T + pose[:3, 3])
+
+
+def to_camera(p, pose: np.ndarray) -> np.ndarray:
+    return ((np.asarray(p, np.float64) - pose[:3, 3]) @ pose[:3, :3]).astype(np.float32)
+
+
+def path_l_frame(L):
+    """Path G's frame 0 of the room (``render_depth`` from the handheld
+    start, seed ``L_SEED``) as an organized frame in the camera, each pixel
+    with the colour of its surface and a little noise: ``xyz [H, W, 3]``,
+    ``valid``, ``depth``, ``rgb``, ``part`` (the surface: ``L_NAMES``, -1
+    where invalid) and the camera's ``pose``."""
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    intr = Intrinsics(*L["intr"])
+    H, W = L["shape"]
+    pose = handheld(np.random.default_rng(G_SEED), 1)[0]
+    rng = np.random.default_rng(L_SEED)
+    depth, _ = render_depth(pose, intr, H, W, rng)
+    v, u = np.mgrid[0:H, 0:W]
+    xyz = np.stack([(u - intr.cx) / intr.fx * depth, (v - intr.cy) / intr.fy * depth, depth], -1)
+    xyz = xyz.astype(np.float32)
+    valid = depth > 0
+    part = np.argmin(room_parts(to_world(xyz.reshape(-1, 3), pose)), 0).reshape(H, W)
+    rgb = np.clip(L_COLORS[part] + 0.03 * rng.normal(size=(H, W, 3)), 0, 1)
+    return dict(xyz=xyz, valid=valid, depth=depth, pose=pose, part=np.where(valid, part, -1),
+                rgb=np.where(valid[..., None], rgb, 0).astype(np.float32))
+
+
+def plane_in_camera(i: int, pose: np.ndarray):
+    """True plane ``i`` in the camera frame: ``(unit normal, offset)``."""
+    n, d = L_PLANE_TRUTH[i]
+    n = np.asarray(n)
+    return n @ pose[:3, :3], float(d + n @ pose[:3, 3])
+
+
+def nearest_region(regions, i: int, pose: np.ndarray):
+    """The planar region closest to true plane ``i``: its normal within
+    ``L_SAME_PLANE`` of the truth's, the nearest offset among those, else the
+    nearest normal."""
+    n, d = plane_in_camera(i, pose)
+
+    def gap(r):
+        c = r.coefficients.astype(np.float64)
+        cos = abs(float(c[:3] @ n))
+        return (cos < math.cos(L_SAME_PLANE[0]), abs(np.sign(c[:3] @ n) * c[3] - d)
+                if cos >= math.cos(L_SAME_PLANE[0]) else -cos)
+
+    return min(regions, key=gap)
+
+
+def same_plane_regions(regions, ref):
+    """Every region whose plane lies within ``L_SAME_PLANE`` of ``ref``'s:
+    an occluder cuts a plane into several regions."""
+    c0 = ref.coefficients.astype(np.float64)
+    out = []
+    for r in regions:
+        c = r.coefficients.astype(np.float64)
+        cos = float(c[:3] @ c0[:3])
+        if abs(cos) >= math.cos(L_SAME_PLANE[0]) and abs(np.sign(cos) * c[3] - c0[3]) \
+                <= L_SAME_PLANE[1]:
+            out.append(r)
+    return out
+
+
+def hull_polygon(pts: np.ndarray, coeff: np.ndarray, inset: float, alpha: float, hulls):
+    """The floor's convex hull as a polygon for the prism (PCL's tutorial:
+    inliers projected onto the plane, a 2-D hull): the points in plane
+    coordinates go to ``hulls(points [N, 3] with z 0, alpha) -> (the convex
+    hull's vertices, the concave hull's edges)``; the vertices in angular
+    order are moved ``inset`` toward their centroid (the walls' base stays out
+    of the prism) and put back in 3-D. Returns ``(polygon [P, 3], the concave
+    hull's edge count)``."""
+    n = coeff[:3] / np.linalg.norm(coeff[:3])
+    e1 = np.cross(n, [1.0, 0.0, 0.0] if abs(n[0]) < 0.9 else [0.0, 1.0, 0.0])
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(n, e1)
+    c = pts.mean(0) - (pts.mean(0) @ n + coeff[3]) * n
+    uv = (pts - c) @ np.stack([e1, e2], 1)
+    verts, edges = hulls(np.concatenate([uv, np.zeros((len(uv), 1))], 1).astype(np.float32),
+                         alpha)
+    v = verts[:, :2].astype(np.float64)
+    mid = v.mean(0)
+    v = v[np.argsort(np.arctan2(v[:, 1] - mid[1], v[:, 0] - mid[0]))]
+    r = np.linalg.norm(v - mid, axis=1, keepdims=True)
+    v = mid + (v - mid) * np.maximum(r - inset, 0) / np.maximum(r, 1e-12)
+    return (c + v[:, :1] * e1 + v[:, 1:] * e2).astype(np.float32), len(edges)
+
+
+def port_hulls(dev):
+    """``hull_polygon``'s hulls on the port: 2-D convex and concave hulls."""
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.surface import concave_hull, convex_hull
+
+    def hulls(flat, alpha):
+        c = make_cloud(flat, device=dev)
+        return convex_hull(c, dim=2)[0], concave_hull(c, alpha, dim=2)[1]
+
+    return hulls
+
+
+def _stamp(dev) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def path_l_chain(frame, L, dev, on_stage=None):
+    """Path L's main path on the port, on ``dev``: (a) organized
+    segmentation, (b) the tabletop flow, (c) reconstruction, (d)
+    segmentation of the voxels. Returns ``(out, seconds)``: host arrays and
+    each call's host time. ``on_stage(name)`` is told each call's name
+    before it runs."""
+    from pcl_tpu_torch import features, filters, keypoints
+    from pcl_tpu_torch import segmentation as seg
+    from pcl_tpu_torch import surface as srf
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.features import integral_image_normals
+    from pcl_tpu_torch.search import bruteforce
+
+    out, secs = {}, {}
+    part = ["(a)"]
+
+    def run(name, fn):
+        if on_stage is not None:
+            on_stage(name)
+        t0 = _stamp(dev)
+        r = fn()
+        secs[f"{part[0]} {name}"] = _stamp(dev) - t0
+        return r
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    H, W = L["shape"]
+    pose = frame["pose"]
+    xyz_img, valid_img, rgb_img = t(frame["xyz"]), t(frame["valid"]), t(frame["rgb"])
+    pix = make_cloud(xyz_img.reshape(-1, 3), valid_img.reshape(-1),
+                     {"rgb": rgb_img.reshape(-1, 3)}, device=dev)
+
+    # (a) organized segmentation of the whole frame, on kNN normals (C63)
+    pn = run("normals (frame, k-NN)",
+             lambda: features.estimate_normals(pix, k=L["frame_normal_k"]))
+    n_img = pn.attrs["normal"].reshape(H, W, 3)
+    labels, regions = run("organized_multi_plane_segmentation",
+                          lambda: seg.organized_multi_plane_segmentation(xyz_img, n_img, valid_img,
+                                                                         **L["planes"]))
+    out["plane_labels"], out["regions"], out["frame_normal"] = labels, regions, n_img.cpu().numpy()
+    i_n, _ = run("integral_image_normals", lambda: integral_image_normals(xyz_img, valid_img))
+    _, out["integral_regions"] = seg.organized_multi_plane_segmentation(
+        xyz_img, i_n, valid_img & (i_n.abs().sum(-1) > 0), **L["planes"])
+    out["cc_labels"] = run("organized_connected_components",
+                           lambda: seg.organized_connected_components(
+                               xyz_img, valid_img, L["cc_distance"])).cpu().numpy()
+    org = make_cloud(xyz_img.reshape(-1, 3), valid_img.reshape(-1), width=W, height=H, device=dev)
+    out["fast_mesh"] = run("organized_fast_mesh",
+                           lambda: srf.organized_fast_mesh(org, L["fast_mesh_edge"]))
+
+    # (b) the tabletop flow on the floor
+    part[0] = "(b)"
+    floor = max(same_plane_regions(regions, nearest_region(regions, 0, pose)),
+                key=lambda r: r.count)
+    coeff = floor.coefficients
+    fpts = frame["xyz"].reshape(-1, 3)[np.concatenate(
+        [r.indices for r in same_plane_regions(regions, floor)])]
+    (hull, n_concave) = run("convex_hull + concave_hull (floor)",
+                            lambda: hull_polygon(fpts, coeff, L["hull_inset"], L["concave_alpha"],
+                                                 port_hulls(dev)))
+    out["hull"], out["concave_edges"], out["floor_coeff"] = hull, n_concave, coeff
+    prism = run("extract_polygonal_prism",
+                lambda: seg.extract_polygonal_prism(pix, hull, coeff, *L["prism"]))
+    objects = pix.with_mask(t(prism))
+    cl, _ = run("euclidean_clusters", lambda: seg.euclidean_clusters(objects, **L["cluster"]))
+    out["prism"], out["clusters"] = prism, cl.cpu().numpy()
+
+    # (c) reconstruction on the frame's voxels
+    part[0] = "(c)"
+    vox = run("voxel_downsample", lambda: live_rows(filters.voxel_downsample(pix, L["leaf"])))
+    vox = run("normals (voxels)", lambda: features.estimate_normals(vox, k=L["normal_k"]))
+    vxyz = vox.xyz.cpu().numpy()
+    vpart = np.argmin(room_parts(to_world(vxyz, pose)), 0)
+    out["vox_xyz"], out["vox_normal"], out["vox_rgb"], out["vox_part"] = (
+        vxyz, vox.attrs["normal"].cpu().numpy(), vox.attrs["rgb"].cpu().numpy(), vpart)
+    mls = {}
+    for r in sorted(set(L["smoothed"]) | {L["mls_radius"]}):
+        mls[r] = run(f"moving_least_squares r={r}",
+                     lambda r=r: srf.moving_least_squares(vox, r, polynomial_order=2))
+    out["mls_xyz"] = mls[L["mls_radius"]].xyz.cpu().numpy()
+    out["keypoints"] = run("smoothed_surfaces_keypoints",
+                           lambda: keypoints.smoothed_surfaces_keypoints(
+                               vox, [mls[r] for r in L["smoothed"]], L["smoothed"][1]))
+    out["gp3"] = run("greedy_projection_triangulation",
+                     lambda: srf.greedy_projection_triangulation(vox, **L["gp3"]))
+    out["hoppe"] = run("reconstruct_hoppe",
+                       lambda: srf.reconstruct_hoppe(vox, resolution=L["hoppe_res"]))
+    out["poisson"] = run("poisson_reconstruction",
+                         lambda: srf.poisson_reconstruction(vox, depth=L["poisson_depth"]))
+    obj = {i: live_rows(vox.with_mask(t(vpart == i))) for i in L_OBJECTS}
+    out["rbf"] = run("marching_cubes_rbf (box)",
+                     lambda: srf.marching_cubes_rbf(obj[3], resolution=L["rbf_res"]))
+    V, F = out["hoppe"]
+    out["laplacian"] = run("laplacian_smooth", lambda: srf.laplacian_smooth(V, F))
+    out["taubin"] = run("taubin_smooth", lambda: srf.taubin_smooth(V, F))
+    out["subdivided"] = run("subdivide_linear", lambda: srf.subdivide_linear(V, F))
+    out["decimated"] = run("decimate_cluster", lambda: srf.decimate_cluster(V, F))
+    back = nearest_region(regions, 1, pose)
+    wall = make_cloud(frame["xyz"].reshape(-1, 3)[back.indices[::L["bspline_stride"]]],
+                      device=dev)
+    out["wall_xyz"] = wall.xyz.cpu().numpy()
+    out["bspline"] = run("fit_bspline_surface", lambda: srf.fit_bspline_surface(wall))
+    out["bspline_iterated"] = run("fit_bspline_surface_iterated",
+                                  lambda: srf.fit_bspline_surface_iterated(wall))
+    out["bspline_trimmed"] = run("fit_trimmed_bspline_surface",
+                                 lambda: srf.fit_trimmed_bspline_surface(wall))
+    def residual(s):
+        uv = torch.clamp((((wall.xyz - s.centroid) @ s.frame.T)[:, :2] - s.origin) / s.scale, 0, 1)
+        return float(torch.linalg.vector_norm(srf.eval_bspline_surface(s, uv) - wall.xyz,
+                                              dim=1).mean())
+
+    out["bspline_residual"] = [residual(out["bspline"]), residual(out["bspline_iterated"]),
+                               residual(out["bspline_trimmed"].surface)]
+    out["bspline_mesh"] = run("convert_surface_to_mesh",
+                              lambda: srf.convert_surface_to_mesh(out["bspline"], 16))
+    up = L["upsample"]
+    out["up_local"] = run("mls_upsample_local_plane (sphere)",
+                          lambda: srf.mls_upsample_local_plane(
+                              obj[4], up["search_radius"], up["upsampling_radius"],
+                              up["step_size"]))
+    out["up_random"] = run("mls_upsample_random_density (cylinder)",
+                           lambda: srf.mls_upsample_random_density(
+                               obj[5], up["search_radius"], up["upsampling_radius"],
+                               up["density"], seed=L_SEED))
+    out["up_dilation"] = run("mls_upsample_voxel_dilation (box)",
+                             lambda: srf.mls_upsample_voxel_dilation(
+                                 obj[3], up["search_radius"], up["voxel_size"]))
+    out["grid_projection"] = run("grid_projection (sphere)",
+                                 lambda: srf.grid_projection(obj[4], resolution=L["grid_res"]))
+    out["surfel"] = run("surfel_smoothing (cylinder)",
+                        lambda: srf.surfel_smoothing(obj[5], L["surfel_radius"]))
+    out["bilateral"] = run("bilateral_upsampling (frame)",
+                           lambda: srf.bilateral_upsampling(t(frame["depth"]),
+                                                            rgb_img)).cpu().numpy()
+    out["texture"] = run("texture_mapping (Hoppe mesh)",
+                         lambda: srf.texture_mapping(V, F, np.eye(4), *L["intr"], W, H))
+
+    # (d) segmentation of the voxels
+    part[0] = "(d)"
+    sv = run("supervoxel_clustering", lambda: seg.supervoxel_clustering(vox, **L["sv"]))
+    out["sv_labels"] = sv.labels.cpu().numpy()
+    out["lccp"] = run("lccp_segmentation", lambda: seg.lccp_segmentation(sv))[0]
+    out["cpc"] = run("cpc_segmentation", lambda: seg.cpc_segmentation(vox, sv))
+    box_c = to_camera(L_CENTERS[3], pose)
+    out["mincut"] = run("min_cut_segmentation (box)",
+                        lambda: seg.min_cut_segmentation(vox, box_c, radius=L_BOX_RADIUS,
+                                                         **L["mincut"]))
+    lo, hi = (np.array(b) for b in G_BOX)
+    vw = to_world(vxyz, pose)
+    grab0 = np.all((vw >= lo - L["grab_margin"]) & (vw <= hi + L["grab_margin"]), axis=1)
+    out["grab"] = run("grab_cut (box)", lambda: seg.grab_cut(vox, grab0))
+    near = [int(np.argmin(np.linalg.norm(vxyz - to_camera(c, pose), axis=1)))
+            for c in (L_CENTERS[3], L_CENTERS[4], L_CENTERS[5], L_FLOOR_SEED)]
+    seed = np.zeros(len(vxyz), bool)
+    seed[near[0]] = True
+    out["hue"] = run("seeded_hue_segmentation (box)",
+                     lambda: seg.seeded_hue_segmentation(vox, t(seed), **L["hue"])).cpu().numpy()
+    seeds = -np.ones(len(vxyz), np.int64)
+    seeds[near] = np.arange(4)
+    out["walker_seeds"] = seeds
+    out["walker"] = run("random_walker", lambda: seg.random_walker(vox, t(seeds),
+                                                                  **L["walker"])).cpu().numpy()
+    fpfh = run("estimate_fpfh (voxels)", lambda: features.estimate_fpfh(vox, k=L["fpfh_k"]))
+    # each voxel's (b) cluster: that of its nearest clustered pixel within a voxel
+    kept = torch.nonzero(cl >= 0)[:, 0]
+    idx, d2 = run("voxels to (b)'s clusters (1-NN)",
+                  lambda: bruteforce.nn1(pix.xyz[kept], pix.mask[kept], vox.xyz))
+    vc = torch.where(d2 <= L["leaf"] ** 2, cl[kept][idx.long()], -1).cpu().numpy()
+    ids = np.unique(vc[vc >= 0])
+    out["vox_cluster"] = np.searchsorted(ids, vc) * (vc >= 0) - (vc < 0)
+    f_np = fpfh.cpu().numpy()
+    clf = seg.UnaryClassifier()
+    gen = torch.Generator(device=dev).manual_seed(L_SEED)
+    run("UnaryClassifier.train", lambda: clf.train([f_np[out["vox_cluster"] == c]
+                                                    for c in range(len(ids))],
+                                                   generator=gen, device=dev))
+    out["unary"] = run("UnaryClassifier.segment", lambda: clf.segment(f_np))
+    return out, secs
+
+
+def _iou(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def path_l_metrics(frame, out, L) -> dict:
+    """Path L's measures from host arrays: the planes against the truth,
+    the clusters' objects, the meshes' distances to the room, supervoxel
+    impurity, LCCP's separation, the min-cut's IoU with the box's cluster,
+    and shares of the other segmentations."""
+    pose, part = frame["pose"], frame["part"].reshape(-1)
+    m = {}
+    planes = {}
+    for i in L_PLANE_TRUTH:
+        if (part == i).sum() < L["planes"]["min_inliers"]:
+            continue
+        r = nearest_region(out["regions"], i, pose)
+        n, d = plane_in_camera(i, pose)
+        c = r.coefficients.astype(np.float64)
+        ang = math.degrees(math.acos(min(1.0, abs(float(c[:3] @ n)))))
+        planes[L_NAMES[i]] = (ang, abs(float(np.sign(c[:3] @ n) * c[3] - d)))
+    m["planes"] = planes
+    m["n_regions"] = len(out["regions"])
+    m["n_integral_regions"] = len(out["integral_regions"])
+    cl = out["clusters"]
+    ids = np.unique(cl[cl >= 0])
+    m["cluster_objects"] = sorted(int(np.bincount(part[cl == c], minlength=6).argmax())
+                                  for c in ids)
+    for name in ("gp3", "hoppe", "poisson", "rbf", "fast_mesh"):
+        V, F = out[name]
+        V = np.asarray(V)[np.unique(F)] if len(F) else np.zeros((0, 3))
+        dist = room_distance(to_world(V, pose))
+        m[f"{name}_mesh"] = (len(V), len(F), float(np.median(dist)) if len(V) else math.inf,
+                             float(np.percentile(dist, 99)) if len(V) else math.inf)
+    vpart = out["vox_part"]
+    sv = out["sv_labels"]
+    impure = 0
+    for s in np.unique(sv[sv >= 0]):
+        p = vpart[sv == s]
+        impure += len(p) - np.bincount(p).max()
+    m["sv_impurity"] = impure / max(int((sv >= 0).sum()), 1)
+    m["n_supervoxels"] = len(np.unique(sv[sv >= 0]))
+    lccp = out["lccp"]
+
+    def major(lab, i):
+        v = lab[(vpart == i) & (lab >= 0)]
+        return int(np.bincount(v).argmax()) if len(v) else -1
+
+    m["lccp_segments"] = {L_NAMES[i]: major(lccp, i) for i in (0,) + L_OBJECTS}
+    m["lccp_separates"] = all(m["lccp_segments"][L_NAMES[i]] != m["lccp_segments"]["floor"]
+                              for i in L_OBJECTS)
+    vc = out["vox_cluster"]
+    boxc = [c for c in np.unique(vc[vc >= 0]) if np.bincount(vpart[vc == c]).argmax() == 3]
+    box = np.isin(vc, boxc) if boxc else vpart == 3
+    m["mincut_iou"] = _iou(out["mincut"], box)
+    m["mincut_fg"] = int(out["mincut"].sum())
+    m["grab_iou"] = _iou(out["grab"], box)
+    m["hue_iou"] = _iou(out["hue"], box)
+    m["walker_share"] = {L_NAMES[i]: float((out["walker"][vpart == i] == k).mean())
+                         for k, i in enumerate(L_OBJECTS + (0,))}
+    m["unary_share"] = [float((out["unary"][vc == c] == c).mean())
+                        for c in np.unique(vc[vc >= 0])]
+    m["keypoints"] = int(np.asarray(out["keypoints"]).sum())
+    m["voxels"] = len(vpart)
+    m["bspline_residual"] = out["bspline_residual"]
+    return m
+
+
 @contextlib.contextmanager
 def kernel_calls(bruteforce, segsum):
     """Keeps the inputs of every B1 call (a 3-D ``bruteforce.nn1``) and
@@ -4035,6 +4477,240 @@ def phase13_path_k(segsum, nn1_mod, street, record_b1, record_b2):
     return {n: [d[n][1] for d in desc] for n in desc[0]}
 
 
+L_CPU_VOXELS = 2048        # (e): the card against the CPU on this many voxels about the box
+L_PLAIN_ROWS = 1 << 18     # (f): B1's plain version on the first rows of a large call
+
+
+def l_card_vs_cpu(frame, out, expect):
+    """(e): the slice's functions on the card against the port's CPU run, on
+    the ``L_CPU_VOXELS`` voxels nearest the box's centre and on the frame
+    taken every 8th pixel, with the CPU tests' tolerances: returns lines to
+    print."""
+    from pcl_tpu_torch import features
+    from pcl_tpu_torch import segmentation as seg
+    from pcl_tpu_torch import surface as srf
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.surface import poisson
+
+    pose, lines = frame["pose"], []
+    vxyz = out["vox_xyz"]
+    near = np.argsort(np.linalg.norm(vxyz - to_camera(L_CENTERS[3], pose), axis=1),
+                      kind="stable")[:L_CPU_VOXELS]
+    sub = dict(xyz=vxyz[near], normal=out["vox_normal"][near], rgb=out["vox_rgb"][near])
+    clouds = {d: make_cloud(sub["xyz"], attrs={"normal": sub["normal"], "rgb": sub["rgb"]},
+                            device=d) for d in ("cuda", "cpu")}
+    res = {}
+    for d, c in clouds.items():
+        r = {}
+        m = srf.moving_least_squares(c, 0.03)
+        r["mls"] = (m.xyz.cpu().numpy(), m.attrs["normal"].cpu().numpy(),
+                    m.attrs["curvature"].cpu().numpy())
+        r["gp3"] = srf.greedy_projection_triangulation(c, **L_FULL["gp3"])
+        lo, hi = srf.reconstruction.hoppe_grid_bounds(c, 0.05)
+        r["sdf"] = srf.hoppe_signed_distance(c, lo, hi, 32).cpu().numpy()
+        gmin, _, cell, _ = poisson.poisson_bounds(c, 5, 1.15)
+        chi, iso, _ = poisson.indicator_grid(c.xyz, c.mask, c.attrs["normal"],
+                                             torch.from_numpy(gmin).to(d),
+                                             torch.from_numpy(cell).to(d), 32)
+        r["chi"] = (chi.cpu().numpy(), float(iso))
+        sv = seg.supervoxel_clustering(c, 0.05, max_seeds=512)
+        r["sv"] = (sv.labels.cpu().numpy(), sv.centers.cpu().numpy())
+        r["lccp"] = seg.lccp_segmentation(sv)[0]
+        r["mincut"] = seg.min_cut_segmentation(c, to_camera(L_CENTERS[3], pose),
+                                               radius=L_BOX_RADIUS, **L_FULL["mincut"])
+        seeds = -np.ones(len(near), np.int64)
+        seeds[[0, len(near) - 1]] = [0, 1]
+        r["walker"] = seg.random_walker(c, torch.from_numpy(seeds).to(d), n_labels=2,
+                                        k=10, sigma=0.05).cpu().numpy()
+        res[d] = r
+    a, b = res["cuda"], res["cpu"]
+    # normals up to their sign (C64), where the fit ran (curvature > 0)
+    fitted = (a["mls"][2] > 0) & (b["mls"][2] > 0)
+    e_mls = [float(np.abs(a["mls"][0] - b["mls"][0]).max()),
+             float(1 - np.abs((a["mls"][1] * b["mls"][1]).sum(1))[fitted].min(initial=1.0))]
+    expect(e_mls[0] <= 1e-5 and e_mls[1] <= 1e-4 and fitted.mean() > 0.99,
+           f"(e) MLS on the card and the CPU differ by {e_mls[0]} m, normals by {e_mls[1]}")
+    gp3_same = np.array_equal(a["gp3"][1], b["gp3"][1])
+    # Hoppe: grid points whose two nearest voxels tie within 8 ulp of |q|^2 +
+    # |t|^2 may take either (C55); the samples themselves may differ in their
+    # last bit (linspace's rounding on each device)
+    lo, hi = srf.reconstruction.hoppe_grid_bounds(clouds["cpu"], 0.05)
+    q = srf.reconstruction.grid_points(torch.from_numpy(lo), torch.from_numpy(hi), 32).numpy()
+    d2 = ((q[:, None, :].astype(np.float64) - sub["xyz"][None].astype(np.float64)) ** 2).sum(-1)
+    part = np.partition(d2, 1, axis=1)
+    scale = (q.astype(np.float64) ** 2).sum(1) + (sub["xyz"].astype(np.float64) ** 2).sum(1).max()
+    firm = (part[:, 1] - part[:, 0] > 8 * 2.0 ** -23 * scale).reshape(a["sdf"].shape)
+    sdf_gap = float(np.abs(a["sdf"] - b["sdf"])[firm].max())
+    chi_gap = float(np.abs(a["chi"][0] - b["chi"][0]).max() / np.abs(b["chi"][0]).max())
+    expect(sdf_gap <= 1e-6 and firm.mean() > 0.95,
+           f"(e) Hoppe's SDF on the card and the CPU differs by {sdf_gap} on "
+           f"{int(firm.sum())} firm grid points")
+    expect(chi_gap <= 1e-5, f"(e) Poisson's chi on the card and the CPU differs by {chi_gap}")
+    sv_same = np.array_equal(a["sv"][0], b["sv"][0])
+    sv_gap = float(np.abs(a["sv"][1] - b["sv"][1]).max())
+    expect(sv_same and sv_gap <= 1e-5, f"(e) supervoxels differ: labels equal {sv_same}, "
+                                       f"centres by {sv_gap}")
+    expect(np.array_equal(a["lccp"], b["lccp"]), "(e) LCCP differs on the card and the CPU")
+    n_cut = int((a["mincut"] != b["mincut"]).sum())
+    n_walk = int((a["walker"] != b["walker"]).sum())
+    expect(n_cut <= 0.01 * len(near) and n_walk <= 0.01 * len(near),
+           f"(e) min-cut ({n_cut}) or random walker ({n_walk}) labels differ")
+    lines.append(f"{L_CPU_VOXELS} voxels: MLS {e_mls[0]:.2e} m, normals 1 - |n.n'| "
+                 f"{e_mls[1]:.2e} on {int(fitted.sum())} fitted, GP3 triangles equal {gp3_same} "
+                 f"({len(a['gp3'][1])}), Hoppe SDF {sdf_gap:.2e} on {int(firm.sum())} of "
+                 f"{firm.size} grid points (the rest near a 1-NN tie), "
+                 f"Poisson chi {chi_gap:.2e} of its largest, supervoxels equal {sv_same} "
+                 f"(centres {sv_gap:.2e}), LCCP equal, min-cut {n_cut} and random walker "
+                 f"{n_walk} labels differ")
+    # the organized functions on every 8th pixel, with k-NN normals from the CPU
+    xyz, valid = frame["xyz"][::8, ::8].copy(), frame["valid"][::8, ::8].copy()
+    h, w = valid.shape
+    pix = make_cloud(xyz.reshape(-1, 3), valid.reshape(-1), device="cpu")
+    nrm = features.estimate_normals(pix, k=16).attrs["normal"].reshape(h, w, 3).numpy()
+    org = {}
+    for d in ("cuda", "cpu"):
+        lab, regs = seg.organized_multi_plane_segmentation(
+            xyz, nrm, valid, min_inliers=150, angular_threshold=0.1, distance_threshold=0.05,
+            device=d)
+        cc = seg.organized_connected_components(xyz, valid, 0.1, device=d).cpu().numpy()
+        org[d] = (lab, [r.coefficients for r in regs], cc)
+    same = (np.array_equal(org["cuda"][0], org["cpu"][0])
+            and np.array_equal(org["cuda"][2], org["cpu"][2]))
+    gap = max([float(np.abs(x - y).max()) for x, y in zip(org["cuda"][1], org["cpu"][1])] or [0])
+    expect(same and gap <= 1e-6, f"(e) organized segmentation differs: labels equal {same}, "
+                                 f"planes by {gap}")
+    lines.append(f"{w} x {h} pixels: plane and component labels equal {same}, "
+                 f"{len(org['cpu'][1])} planes within {gap:.1e}")
+    return lines
+
+
+def phase14_path_l(segsum, nn1_mod, record_b1, record_b2):
+    """Path L: surface reconstruction and the rest of segmentation on path
+    G's room, frame 0, at VGA and 1 cm voxels."""
+    from pcl_tpu_torch.search import bruteforce
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        """A check of this phase, raised with the others at its end."""
+        if not cond:
+            print(f"phase 14: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    dev = torch.device("cuda")
+    frame, fsecs = timed(lambda: path_l_frame(L_FULL))
+    print(f"phase 14: frame 0 of the room at {G_SHAPE[1]} x {G_SHAPE[0]} rendered in "
+          f"{fsecs:.1f} s: {int(frame['valid'].sum())} valid pixels, by surface "
+          + ", ".join(f"{n} {int((frame['part'] == i).sum())}" for i, n in enumerate(L_NAMES)),
+          flush=True)
+    # warm-up at 80 x 60 (libraries, solvers, allocator)
+    _, wsecs = timed(lambda: path_l_chain(path_l_frame(L_SMALL), L_SMALL, dev))
+    print(f"phase 14: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    with kernel_calls(bruteforce, segsum) as calls:
+        (out, secs), total = timed(lambda: path_l_chain(
+            frame, L_FULL, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
+    record_b1["launches_by_path"]["L"] = nn1_mod.nn1.launches
+    record_b2["launches_by_path"]["L"] = segsum.segment_sum_sorted.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = card_line()
+    print(f"phase 14: path L in {total:.1f} s, peak memory {peak:.2f} GiB, launches nn1 "
+          f"{nn1_mod.nn1.launches}, segsum {segsum.segment_sum_sorted.launches} [{card}]",
+          flush=True)
+    for name, v in secs.items():
+        print(f"phase 14: {name}: {v * 1e3:.1f} ms [{card}]", flush=True)
+    parts = {p: sum(v for k, v in secs.items() if k.startswith(p))
+             for p in ("(a)", "(b)", "(c)", "(d)")}
+    print("phase 14: by part " + ", ".join(f"{p} {v:.2f} s" for p, v in parts.items()),
+          flush=True)
+    expect(nn1_mod.nn1.launches >= 3 and segsum.segment_sum_sorted.launches >= 1,
+           "path L launched B1 fewer than 3 times (Hoppe, grid projection, the voxels' 1-NN) "
+           "or B2 never (the voxel grid)")
+    expect(len(calls["nn1"]) == nn1_mod.nn1.launches
+           and len(calls["segsum"]) == segsum.segment_sum_sorted.launches,
+           "the kept kernel calls do not match the launch counts")
+
+    m = path_l_metrics(frame, out, L_FULL)
+    print("phase 14: metrics " + json.dumps(m, default=float), flush=True)
+    lim = L_LIMITS
+    expect(set(m["planes"]) == {L_NAMES[i] for i in L_PLANE_TRUTH
+                                if (frame["part"] == i).sum() >= L_FULL["planes"]["min_inliers"]},
+           f"(a) visible planes found: {sorted(m['planes'])}")
+    for name, (deg, off) in m["planes"].items():
+        expect(deg <= lim["plane_deg"] and off <= lim["plane_m"],
+               f"(a) the {name} lies {deg:.4f} deg and {off:.5f} m off")
+    expect(m["cluster_objects"] == list(L_OBJECTS),
+           f"(b) the clusters' objects are {m['cluster_objects']}, not one box, sphere, cylinder")
+    for name in ("gp3", "hoppe", "poisson"):
+        _, nf, med, p99 = m[f"{name}_mesh"]
+        expect(nf > 0 and med <= lim["mesh_median"][name] and p99 <= lim["mesh_p99"][name],
+               f"(c) the {name} mesh lies off the room: median {med:.5f} m, p99 {p99:.5f} m")
+    expect(m["sv_impurity"] <= lim["sv_impurity"],
+           f"(d) supervoxel impurity {m['sv_impurity']:.4f}")
+    # printed, not checked: the JAX package's convexity test merges a box top
+    # with the floor beside it (parallel normals count as convex, C68)
+    print(f"phase 14: (d) LCCP separates the objects from the floor: {m['lccp_separates']} "
+          f"(the major segment of each: {m['lccp_segments']})", flush=True)
+    expect(m["mincut_iou"] >= lim["mincut_iou"],
+           f"(d) the min-cut foreground's IoU with the box's cluster is {m['mincut_iou']:.4f}")
+
+    from pcl_tpu_torch import surface
+    from pcl_tpu_torch.core.cloud import make_cloud
+
+    vox = make_cloud(out["vox_xyz"], attrs={"normal": out["vox_normal"]})
+    device_breakdown("phase 14 (moving_least_squares r=0.03 on the voxels)",
+                     lambda: surface.moving_least_squares(vox, L_FULL["mls_radius"]))
+    del vox
+    lines, csecs = timed(lambda: l_card_vs_cpu(frame, out, expect))
+    print(f"phase 14: (e) card against CPU ({csecs:.1f} s): " + "; ".join(lines), flush=True)
+
+    # (f) every kernel call of the path against its plain version at its shape
+    rows1 = []
+    for stage, t_, m_, q_ in calls["nn1"]:
+        n = min(len(q_), L_PLAIN_ROWS)
+        ik, dk = nn1_mod.nn1(t_, m_, q_)
+        ip, dp = nn1_mod.nn1_plain(t_, m_, q_[:n])
+        nd, dd = int((ik[:n] != ip).sum()), float((dk[:n] - dp).abs().max())
+        expect(nd == 0 and dd == 0.0, f"(f) B1 differs from its plain version at {stage} "
+                                      f"{len(q_)} x {len(t_)}: {nd} indices, d2 by {dd}")
+        ms = cuda_ms(lambda: nn1_mod.nn1(t_, m_, q_), reps=5)
+        plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t_, m_, q_[:n]), reps=1)
+        bound_s, bound_by = nn1_bound_ms(len(q_), len(t_))
+        rows1.append({"case": stage, "q": len(q_), "m": len(t_), "ms": ms, "plain_ms": plain_ms,
+                      "plain_rows": n, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                      "max_abs_err": dd})
+        print(f"phase 14: (f) nn1 at {stage} {len(q_)} x {len(t_)}: {ms:.3f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms ({bound_by}), plain {plain_ms:.2f} ms on {n} queries; "
+              f"{nd} indices differ, max |d2 diff| {dd:.3e} [{card}]", flush=True)
+    record_b1["path_l"] = rows1
+    rows2 = []
+    for stage, vals, seg_ in calls["segsum"]:
+        k_ = segsum.segment_sum_sorted(vals, seg_)
+        p_ = segsum.segment_sum_sorted_plain(vals, seg_)
+        err = float((k_ - p_).abs().max())
+        n_seg = int(seg_[seg_ < len(seg_)].max()) + 1
+        ms = cuda_ms(lambda: segsum.segment_sum_sorted(vals, seg_), reps=20)
+        plain_ms = cuda_ms(lambda: segsum.segment_sum_sorted_plain(vals, seg_), reps=5)
+        bound_s, bound_by = segsum_bound_ms(vals.shape[0], vals.shape[1], n_seg)
+        lengths = torch.bincount(torch.clamp(seg_, max=n_seg).long(), minlength=n_seg + 1)
+        library_ms = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths), reps=20)
+        expect(err <= 1e-6 * float(p_.abs().max()),
+               f"(f) B2 differs from its plain version at {stage}")
+        rows2.append({"case": stage, "n": vals.shape[0], "w": vals.shape[1], "segments": n_seg,
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                      "bound_by": bound_by, "max_abs_err": err, "library_ms": library_ms})
+        print(f"phase 14: (f) segsum at {stage} {list(vals.shape)} -> {n_seg} voxels: "
+              f"{ms * 1e3:.1f} us, bound {bound_s * 1e6:.2f} us ({bound_by}), plain "
+              f"{plain_ms * 1e3:.1f} us, torch.segment_reduce {library_ms * 1e3:.1f} us; max "
+              f"|kernel - plain| {err:.3e} [{card}]", flush=True)
+    record_b2["path_l"] = rows2
+    check(not failed, "path L: " + "; ".join(failed))
+    return {"total_s": total, "peak_gib": peak, "secs": secs, "parts": parts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4108,11 +4784,14 @@ def main() -> int:
     lap("phase 12")
     times_k = phase13_path_k(segsum, nn1_mod, street, record, record_b2)
     lap("phase 13")
+    out_l = phase14_path_l(segsum, nn1_mod, record, record_b2)
+    lap("phase 14")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
         # H (the rest of registration), I (the sharded functions, one rank),
-        # J (the filter front end), K (descriptors, keypoints, clusters)
+        # J (the filter front end), K (descriptors, keypoints, clusters),
+        # L (surface reconstruction and segmentation)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -4136,7 +4815,8 @@ def main() -> int:
           + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in out_j.items() if k != "ate")
           + "; path K ms per scan "
           + ", ".join(f"{k} {v[0] * 1e3:.1f}/{v[1] * 1e3:.1f}" for k, v in times_k.items())
-          + f" [{card}]", flush=True)
+          + f"; path L {out_l['total_s']:.1f} s, peak {out_l['peak_gib']:.2f} GiB [{card}]",
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,63 @@
+"""CLI: implicit-surface reconstruction (Hoppe SDF or RBF) to a mesh
+(counterpart of ``pcl_tpu/tools/marching_cubes_reconstruction.py``).
+
+    python -m pcl_tpu_torch.tools.marching_cubes_reconstruction in.pcd out.ply [-method hoppe|rbf] [-grid_res 48] [-k 16] [--device cpu]
+
+Normals are estimated (k nearest) when the cloud has none. A ``.ply`` output
+holds the mesh, a ``.pcd`` output its vertices; ``.vtk`` and ``.ifs`` meshes
+wait for ROADMAP item 22.
+"""
+import argparse
+import sys
+
+# mesh formats of the JAX tools that the port does not write yet
+_NOT_PORTED = (".vtk", ".ifs")
+
+
+def save_mesh(path, verts, tris) -> None:
+    """Write a mesh: ``.ply`` with its faces, ``.pcd`` its vertices only;
+    ``.vtk`` and ``.ifs`` raise (ROADMAP item 22, ``io/formats_extra.py``)."""
+    import numpy as np
+
+    from pcl_tpu_torch import io
+    from pcl_tpu_torch.core.cloud import make_cloud
+
+    low = str(path).lower()
+    for ext in _NOT_PORTED:
+        if low.endswith(ext):
+            raise ValueError(f"{ext} meshes are not ported yet (ROADMAP.md, queue A, item 22 "
+                             f"(io/formats_extra.py)): {path}")
+    cloud = make_cloud(np.asarray(verts, np.float32), device="cpu")
+    if low.endswith(".ply"):
+        io.save_ply(path, cloud, faces=np.asarray(tris, np.int32))
+    else:
+        io.save(path, cloud)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Marching-cubes style reconstruction")
+    ap.add_argument("input")
+    ap.add_argument("output", help=".ply mesh or .pcd vertices")
+    ap.add_argument("-method", choices=("hoppe", "rbf"), default="hoppe")
+    ap.add_argument("-grid_res", type=int, default=48)
+    ap.add_argument("-k", type=int, default=16, help="normal-estimation neighbors")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    from pcl_tpu_torch import features, io
+    from pcl_tpu_torch.surface import marching_cubes_rbf, reconstruct_hoppe
+
+    c = io.load(args.input, device=args.device)
+    if "normal" not in c.attrs:
+        c = features.estimate_normals(c, k=args.k)
+    if args.method == "hoppe":
+        verts, tris = reconstruct_hoppe(c, resolution=args.grid_res)
+    else:
+        verts, tris = marching_cubes_rbf(c, resolution=args.grid_res)
+    save_mesh(args.output, verts, tris)
+    print(f"[marching_cubes] {args.method}: {len(verts)} vertices, "
+          f"{len(tris)} triangles -> {args.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -970,3 +970,60 @@ def test_sift_launches_b2_an_octave_and_b1_once(cuda):
     # the difference of Gaussians adds in another order: the same keypoints
     # but for extrema within rounding of a neighbour
     assert abs(int(kp.mask.sum()) - int(cpu.mask.sum())) <= 0.05 * int(cpu.mask.sum()) + 1
+
+
+def _ball(seed=0, n=800):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    xyz = (np.array([0.0, 0.0, 2.0]) + (0.4 + 0.002 * rng.normal(size=(n, 1))) * d)
+    return xyz.astype(np.float32), d.astype(np.float32)
+
+
+def test_hoppe_launches_b1_once_a_grid_and_matches_cpu(cuda):
+    """One B1 launch for the grid's R^3 queries; the SDF equal to the CPU
+    run's (the same exact distances, bit for bit as kernel and plain agree)
+    but at grid points within 8 ulp of a 1-NN tie (ROADMAP C55), the meshes
+    equal when no sign differs."""
+    from pcl_tpu_torch.surface import reconstruction
+
+    xyz, nrm = _ball()
+    clouds = [make_cloud(xyz, attrs={"normal": nrm}, device=d) for d in (cuda, "cpu")]
+    lo, hi = reconstruction.hoppe_grid_bounds(clouds[1], 0.05)
+    before = nn1_mod.nn1.launches
+    s_card = reconstruction.hoppe_signed_distance(clouds[0], lo, hi, 32).cpu().numpy()
+    assert nn1_mod.nn1.launches == before + 1
+    s_cpu = reconstruction.hoppe_signed_distance(clouds[1], lo, hi, 32).numpy()
+    q = reconstruction.grid_points(torch.from_numpy(lo), torch.from_numpy(hi), 32).numpy()
+    d = ((q[:, None, :].astype(np.float64) - xyz[None].astype(np.float64)) ** 2).sum(-1)
+    part = np.partition(d, 1, axis=1)
+    scale = (q.astype(np.float64) ** 2).sum(1) + (xyz.astype(np.float64) ** 2).sum(1).max()
+    firm = (part[:, 1] - part[:, 0] > 8 * 2.0 ** -23 * scale).reshape(s_cpu.shape)
+    assert firm.mean() > 0.95
+    np.testing.assert_allclose(s_card[firm], s_cpu[firm], atol=1e-6)
+    (vc, fc), (vp, fp) = (reconstruction.surface_nets(s, lo, hi) for s in (s_card, s_cpu))
+    if np.array_equal(s_card < 0, s_cpu < 0):
+        assert np.array_equal(fc, fp)
+
+
+def test_poisson_repeats_bitwise_on_card(cuda):
+    """The splat adds by ``index_put_`` with accumulation (C28): two runs on
+    the card are bitwise equal, and chi agrees with the CPU run to 1e-5 of
+    its largest (C56)."""
+    from pcl_tpu_torch.surface import poisson
+
+    xyz, nrm = _ball(1)
+    c = make_cloud(xyz, attrs={"normal": nrm}, device=cuda)
+    gmin, _, cell, _ = poisson.poisson_bounds(c, 6, 1.15)
+    runs = [poisson.indicator_grid(c.xyz, c.mask, c.attrs["normal"],
+                                   torch.from_numpy(gmin).to(cuda),
+                                   torch.from_numpy(cell).to(cuda), 64) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    cc = make_cloud(xyz, attrs={"normal": nrm}, device="cpu")
+    chi_cpu, _, _ = poisson.indicator_grid(cc.xyz, cc.mask, cc.attrs["normal"],
+                                           torch.from_numpy(gmin), torch.from_numpy(cell), 64)
+    chi = runs[0][0].cpu()
+    assert float((chi - chi_cpu).abs().max()) <= 1e-5 * float(chi_cpu.abs().max())
+    V1, F1 = poisson.poisson_reconstruction(c, depth=6)
+    V2, F2 = poisson.poisson_reconstruction(c, depth=6)
+    assert np.array_equal(V1, V2) and np.array_equal(F1, F2) and len(F1) > 1000

@@ -22,6 +22,7 @@ from pcl_tpu_torch.parallel import runtime as tparallel_runtime
 from pcl_tpu_torch.core import cloud as tcloud
 from pcl_tpu_torch.registration import graph as tgraph
 from pcl_tpu_torch.registration import graph_optimizer as tgo
+from pcl_tpu_torch import segmentation as tseg
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pcl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -90,7 +91,16 @@ def test_new_modules_are_covered():
                  "segmentation/region_growing.py", "features/global_desc.py",
                  "features/cvfh.py", "features/gasd.py", "features/intensity.py",
                  "features/color_features.py", "tools/vfh_estimation.py",
-                 "tools/spin_estimation.py", "tools/boundary_estimation.py"):
+                 "tools/spin_estimation.py", "tools/boundary_estimation.py",
+                 "surface/__init__.py", "surface/reconstruction.py", "surface/hulls.py",
+                 "surface/mls.py", "surface/mls_upsampling.py", "surface/triangulation.py",
+                 "surface/poisson.py", "surface/rbf.py", "surface/processing.py",
+                 "surface/mesh_smoothing.py", "surface/bspline.py", "keypoints/smoothed.py",
+                 "segmentation/organized.py", "segmentation/supervoxel.py",
+                 "segmentation/advanced.py", "segmentation/graphcut.py", "ml/__init__.py",
+                 "ml/kmeans.py", "tools/mls_smoothing.py", "tools/gp3_surface.py",
+                 "tools/marching_cubes_reconstruction.py", "tools/poisson_reconstruction.py",
+                 "tools/compute_hull.py", "tools/crop_to_hull.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -128,11 +138,11 @@ def _jax_exports(package: str):
     return out
 
 
-# the JAX modules left for later (ROADMAP items 20 and 22), whose names the
-# port's packages do not export yet
+# the JAX modules left for later (ROADMAP item 22b), whose names the port's
+# packages do not export yet
 LEFT_FOR_LATER = {
     "features": ("pcl_tpu.features.narf", "pcl_tpu.features.organized_edge"),
-    "keypoints": ("pcl_tpu.keypoints.corners2d", "pcl_tpu.keypoints.smoothed"),
+    "keypoints": ("pcl_tpu.keypoints.corners2d",),
 }
 
 
@@ -149,20 +159,35 @@ def test_features_and_keypoints_export_the_jax_names(package):
                      "narf_keypoints", "narf_descriptors", "BorderDescription", "BORDER_NONE",
                      "BORDER_OBSTACLE", "BORDER_SHADOW"],
         "keypoints": ["agast_keypoints", "brisk_keypoints", "brisk_descriptor",
-                      "trajkovic_keypoints", "agast_score", "trajkovic_score",
-                      "smoothed_surfaces_keypoints"]}[package]
+                      "trajkovic_keypoints", "agast_score", "trajkovic_score"]}[package]
     port = importlib.import_module(f"pcl_tpu_torch.{package}")
     assert port.__all__ == [n for n, mod in names if mod not in LEFT_FOR_LATER[package]]
     assert all(hasattr(port, n) for n in port.__all__)
 
 
-def test_segmentation_exports_the_ported_names():
-    port = importlib.import_module("pcl_tpu_torch.segmentation")
-    ported = ("pcl_tpu.segmentation.clustering", "pcl_tpu.segmentation.region_growing",
-              "pcl_tpu.segmentation.sac_segmentation")
-    want = [n for n, mod in _jax_exports("segmentation") if mod in ported]
-    assert sorted(port.__all__) == sorted(want)
+def _exports_all(package):
+    port = importlib.import_module(f"pcl_tpu_torch.{package}")
+    assert port.__all__ == [n for n, _ in _jax_exports(package)]
     assert all(callable(getattr(port, n)) for n in port.__all__)
+
+
+def test_segmentation_exports_the_ported_names():
+    """Every module of ``segmentation/`` is ported: ``__all__`` is every name
+    the JAX package's ``__init__`` imports, in its order."""
+    _exports_all("segmentation")
+
+
+def test_surface_exports_the_jax_names():
+    _exports_all("surface")
+
+
+def test_ml_exports_kmeans_as_a_sampler_and_a_core():
+    """``ml`` exports only ``kmeans`` until ROADMAP item 21; its draw is a
+    sampler beside a core that takes the drawn indices (C17)."""
+    ml = importlib.import_module("pcl_tpu_torch.ml")
+    km = importlib.import_module("pcl_tpu_torch.ml.kmeans")
+    assert ml.__all__ == ["kmeans"] and ml.kmeans is km.kmeans
+    assert callable(km.kmeans_init_indices) and callable(km.kmeans_core)
 
 
 def test_scan_sees_forbidden_imports(tmp_path):
@@ -188,9 +213,15 @@ def test_scan_sees_forbidden_imports(tmp_path):
     lambda: tparallel.make_mesh(),
     lambda: tparallel_runtime.initialize_multihost(init_method="file:///nonexistent",
                                                    num_processes=2, process_id=0),
+    lambda: tseg.organized_connected_components(np.zeros((4, 4, 3)), np.ones((4, 4), bool)),
+    lambda: tseg.organized_multi_plane_segmentation(np.zeros((4, 4, 3)), np.zeros((4, 4, 3)),
+                                                    np.ones((4, 4), bool)),
+    lambda: tseg.UnaryClassifier().train([np.zeros((4, 2))], clusters_per_class=1),
 ], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays",
         "tsdf_volume_from_arrays", "make_volume", "build_edges_from_correspondences",
-        "PoseGraph.optimize", "make_mesh", "initialize_multihost"])
+        "PoseGraph.optimize", "make_mesh", "initialize_multihost",
+        "organized_connected_components", "organized_multi_plane_segmentation",
+        "UnaryClassifier.train"])
 def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

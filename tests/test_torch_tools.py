@@ -28,6 +28,12 @@ from pcl_tpu.tools import ndt2d as j_ndt2d
 from pcl_tpu.tools import boundary_estimation as j_boundary
 from pcl_tpu.tools import spin_estimation as j_spin
 from pcl_tpu.tools import vfh_estimation as j_vfh
+from pcl_tpu.tools import compute_hull as j_hull
+from pcl_tpu.tools import crop_to_hull as j_crop
+from pcl_tpu.tools import gp3_surface as j_gp3
+from pcl_tpu.tools import marching_cubes_reconstruction as j_mc
+from pcl_tpu.tools import mls_smoothing as j_mls
+from pcl_tpu.tools import poisson_reconstruction as j_poisson
 
 from pcl_tpu_torch import io as tio
 from pcl_tpu_torch.core.cloud import make_cloud, to_numpy
@@ -50,6 +56,12 @@ from pcl_tpu_torch.tools import ndt2d as t_ndt2d
 from pcl_tpu_torch.tools import boundary_estimation as t_boundary
 from pcl_tpu_torch.tools import spin_estimation as t_spin
 from pcl_tpu_torch.tools import vfh_estimation as t_vfh
+from pcl_tpu_torch.tools import compute_hull as t_hull
+from pcl_tpu_torch.tools import crop_to_hull as t_crop
+from pcl_tpu_torch.tools import gp3_surface as t_gp3
+from pcl_tpu_torch.tools import marching_cubes_reconstruction as t_mc
+from pcl_tpu_torch.tools import mls_smoothing as t_mls
+from pcl_tpu_torch.tools import poisson_reconstruction as t_poisson
 
 CPU = ["--device", "cpu"]
 
@@ -340,7 +352,8 @@ def test_sac_segmentation_plane_tool(scans, capsys, tmp_path):
 
 @pytest.mark.parametrize("tool", [t_voxel_grid, t_normals, t_icp, t_ndt3d, t_odometry, t_fpfh,
                                   t_sacseg, t_sacplane, t_lum, t_elch, t_hausdorff, t_ndt2d,
-                                  t_icp2d, t_iter_icp, t_cloud_error],
+                                  t_icp2d, t_iter_icp, t_cloud_error, t_mls, t_gp3, t_mc,
+                                  t_poisson, t_hull, t_crop],
                          ids=lambda m: m.__name__.split(".")[-1])
 def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     """No silent move to the CPU: without a card and without --device cpu the
@@ -350,6 +363,8 @@ def test_tools_ask_for_the_card_by_default(scans, monkeypatch, tmp_path, tool):
     argv = {t_odometry: files[:2]}.get(tool, [files[0], str(tmp_path / "o.pcd")])
     if tool in (t_icp, t_ndt3d, t_hausdorff, t_ndt2d, t_iter_icp, t_cloud_error):
         argv = files[:2]
+    if tool is t_crop:
+        argv = [*files[:2], str(tmp_path / "o.pcd")]
     if tool is t_icp2d:
         argv = [*files[:2], str(tmp_path / "o.pcd")]
     if tool in (t_lum, t_elch):
@@ -512,3 +527,139 @@ def test_boundary_estimation_tool(scans, capsys, tmp_path):
     assert common >= len(bj) - 2 and len(bt) <= len(bj) + 2
     if len(bt) == len(bj):
         assert line_t == line_j
+
+
+def _mesh(path):
+    from pcl_tpu_torch.io import ply
+
+    c, faces = ply.load_mesh(path, device="cpu")
+    return to_numpy(c)[0], faces
+
+
+def _hausdorff(a, b):
+    from scipy.spatial import cKDTree
+
+    return max(cKDTree(a).query(b)[0].max(), cKDTree(b).query(a)[0].max())
+
+
+def test_mls_smoothing_tool(scans, capsys, tmp_path):
+    """The same line and the smoothed points to 1e-5 m; the normals to 1e-4
+    up to their sign, which on a plane the sign of a rounding-sized height
+    decides (ROADMAP C64), on every point with a curvature and on 99% of all
+    (a point with fewer than six neighbours keeps the plane normal of a
+    degenerate covariance)."""
+    f = scans[0][0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    assert t_mls.main([f, out_t, "-radius", "0.3", *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_mls.main([f, out_j, "-radius", "0.3"]) == 0
+    assert line_t == capsys.readouterr().out == \
+        "[mls_smoothing] smoothed 1500 points (radius 0.3, order 2)\n"
+    (xt, at), (xj, aj) = _xyz(out_t), _xyz(out_j)
+    np.testing.assert_allclose(xt, xj, atol=1e-5)
+    agree = np.abs((at["normal"] * aj["normal"]).sum(1)) >= 1 - 1e-4
+    fitted = (at["curvature"] > 0) & (aj["curvature"] > 0)
+    assert agree[fitted].all() and agree.mean() >= 0.99
+
+
+@pytest.fixture(scope="module")
+def ball_file(tmp_path_factory):
+    """A noisy sphere as a PCD file: the RBF tool's input (on the room scans
+    its r^3 system is too ill-conditioned for float32, ROADMAP C66)."""
+    import torch_surface_scenes as S
+
+    path = str(tmp_path_factory.mktemp("ball") / "ball.pcd")
+    tio.save(path, make_cloud(S.sphere(0, 800)[0], device="cpu"))
+    return path
+
+
+@pytest.mark.parametrize("tool,args", [
+    ("gp3", ["-radius", "0.5", "-k", "12"]), ("hoppe", ["-grid_res", "24"]),
+    ("rbf", ["-method", "rbf", "-grid_res", "20"]), ("poisson", ["-depth", "5"])])
+def test_mesh_tools(scans, ball_file, capsys, tmp_path, tool, args):
+    """Each tool estimates its own normals (1e-5 apart, ROADMAP C9) and the
+    JAX 1-NN rounds another way (C55): the meshes lie within 2 cm, a tenth
+    of their grid cell (GP3: the same vertices, triangle counts within 2%;
+    RBF within one cell: its ill-conditioned solve amplifies the normals'
+    difference, C66)."""
+    f = ball_file if tool == "rbf" else scans[0][0]
+    t_mod, j_mod = {"gp3": (t_gp3, j_gp3), "poisson": (t_poisson, j_poisson)}.get(
+        tool, (t_mc, j_mc))
+    out_t, out_j = str(tmp_path / "t.ply"), str(tmp_path / "j.ply")
+    assert t_mod.main([f, out_t, *args, *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_mod.main([f, out_j, *args]) == 0
+    line_j = capsys.readouterr().out
+    assert line_t.split()[0] == line_j.split()[0]
+    (vt, ft), (vj, fj) = _mesh(out_t), _mesh(out_j)
+    assert len(ft) > 100 and abs(len(ft) - len(fj)) <= 0.02 * len(fj)
+    if tool == "gp3":
+        np.testing.assert_array_equal(vt, vj)
+    else:
+        assert _hausdorff(vt, vj) <= (0.06 if tool == "rbf" else 0.02)
+
+
+def test_mesh_tools_write_pcd_vertices_and_refuse_vtk(scans, capsys, tmp_path):
+    f = scans[0][0]
+    out = str(tmp_path / "v.pcd")
+    assert t_hull.main([f, out, *CPU]) == 0
+    verts, faces = _mesh_of_hull(tmp_path, f, capsys)
+    np.testing.assert_array_equal(_xyz(out)[0], verts)
+    for ext in (".vtk", ".ifs"):
+        with pytest.raises(ValueError, match="item 22"):
+            t_gp3.main([f, str(tmp_path / f"m{ext}"), *CPU])
+
+
+def _mesh_of_hull(tmp_path, f, capsys):
+    out = str(tmp_path / "h.ply")
+    assert t_hull.main([f, out, *CPU]) == 0
+    capsys.readouterr()
+    return _mesh(out)
+
+
+def test_compute_hull_tool(scans, capsys, tmp_path):
+    """Qhull on the host in both: the same mesh, bit for bit."""
+    f = scans[0][0]
+    out_t, out_j = str(tmp_path / "t.ply"), str(tmp_path / "j.ply")
+    assert t_hull.main([f, out_t, *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_hull.main([f, out_j]) == 0
+    assert line_t == capsys.readouterr().out
+    (vt, ft), (vj, fj) = _mesh(out_t), _mesh(out_j)
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(ft, fj)
+    assert len(ft) > 10
+
+
+def test_compute_hull_tool_concave(scans, capsys, tmp_path):
+    """With -alpha the JAX tool fails writing its 2-D hull's edges as
+    triangles (ROADMAP C65); the port's writes the 3-D alpha shape, equal to
+    the JAX package's ``concave_hull(dim=3)``."""
+    from pcl_tpu import io as jio
+    from pcl_tpu.surface.hulls import concave_hull as j_concave
+
+    f = scans[0][0]
+    with pytest.raises(ValueError, match="broadcast"):
+        j_hull.main([f, str(tmp_path / "j.ply"), "-alpha", "0.4"])
+    capsys.readouterr()
+    out_t = str(tmp_path / "t.ply")
+    assert t_hull.main([f, out_t, "-alpha", "0.4", *CPU]) == 0
+    vj, fj = j_concave(jio.load(f), 0.4, dim=3)
+    vt, ft = _mesh(out_t)
+    assert capsys.readouterr().out == \
+        f"[compute_hull] 1500 pts -> {len(vj)} verts, {len(fj)} facets\n"
+    np.testing.assert_array_equal(vt, vj)
+    np.testing.assert_array_equal(ft, fj)
+
+
+@pytest.mark.parametrize("outside", [False, True])
+def test_crop_to_hull_tool(scans, capsys, tmp_path, outside):
+    files = scans[0]
+    out_t, out_j = str(tmp_path / "t.pcd"), str(tmp_path / "j.pcd")
+    flag = ["--outside"] if outside else []
+    assert t_crop.main([files[1], files[0], out_t, *flag, *CPU]) == 0
+    line_t = capsys.readouterr().out
+    assert j_crop.main([files[1], files[0], out_j, *flag]) == 0
+    assert line_t == capsys.readouterr().out
+    np.testing.assert_array_equal(_xyz(out_t)[0], _xyz(out_j)[0])
+    assert 0 < len(_xyz(out_t)[0]) < 1500
