@@ -139,7 +139,20 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    classifier on FPFH; (e) the planes, clusters, meshes and segmentations
    against the room, and the functions on the card against the CPU on 2,048
    voxels and an 80 x 60 frame; (f) every B1 and B2 call of the path against
-   its plain version at its own shape.
+   its plain version at its own shape;
+15. path M, PCL's octree, range-image and NARF tutorials on path C's six
+   scans, each moved into scan 0's frame (one shared tree origin, 0.2 m
+   leaves, depth 10): (a) build, (b) change detection between consecutive
+   scans and a double-buffered octree over the six, (c) voxel, box and
+   occupancy queries, (d) leaf centroids (B2) and every level, (e)
+   adjacency and the occupancy grid, (f) rays from the sensor to a
+   subsample, (g) approximate 1-NN of the next scan against B1's exact
+   1-NN, (h) the iterators, each held to numpy on the same keys; (i)
+   spherical range images of each scan in its own frame (720 x 360 at
+   0.5 deg) held to a float64 z-buffer, ``to_cloud``, and a planar image of
+   path G's VGA frame; (j) NARF borders, keypoints and descriptors; the
+   chain on the card against the CPU on 8,192 points of two scans; B1 and
+   B2 held to their plain versions at the path's shapes.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
@@ -4174,11 +4187,11 @@ def path_l_metrics(frame, out, L) -> dict:
 @contextlib.contextmanager
 def kernel_calls(bruteforce, segsum):
     """Keeps the inputs of every B1 call (a 3-D ``bruteforce.nn1``) and
-    every B2 call (``segsum.sorted_inputs``' outputs) made inside, each
-    tagged with ``calls["stage"]`` at the time, so that (g) holds the kernels
-    to their plain versions at the main path's own shapes. The kernels run
-    and count their launches as before."""
-    kernel_nn1, sorted_inputs = bruteforce.nn1, segsum.sorted_inputs
+    every B2 call (``segsum.segment_sum_sorted``) made inside, each tagged
+    with ``calls["stage"]`` at the time, so that the kernels can be held to
+    their plain versions at the main path's own shapes. The kernels run and
+    count their launches as before."""
+    kernel_nn1, kernel_segsum = bruteforce.nn1, segsum.segment_sum_sorted
     calls = {"stage": None, "nn1": [], "segsum": []}
 
     def nn1(t, m, q, *args, **kw):
@@ -4186,16 +4199,18 @@ def kernel_calls(bruteforce, segsum):
             calls["nn1"].append((calls["stage"], t, m, q))
         return kernel_nn1(t, m, q, *args, **kw)
 
-    def keep(*args):
-        out = sorted_inputs(*args)
-        calls["segsum"].append((calls["stage"], *out))
-        return out
+    def keep(vals, seg):
+        calls["segsum"].append((calls["stage"], vals, seg))
+        return kernel_segsum(vals, seg)
 
-    bruteforce.nn1, segsum.sorted_inputs = nn1, keep
+    # the wrapper counts its launches under the module's name, ``keep`` here
+    keep.launches = kernel_segsum.launches
+    bruteforce.nn1, segsum.segment_sum_sorted = nn1, keep
     try:
         yield calls
     finally:
-        bruteforce.nn1, segsum.sorted_inputs = kernel_nn1, sorted_inputs
+        bruteforce.nn1, segsum.segment_sum_sorted = kernel_nn1, kernel_segsum
+        kernel_segsum.launches = keep.launches
 
 
 def phase13_path_k(segsum, nn1_mod, street, record_b1, record_b2):
@@ -4584,6 +4599,52 @@ def l_card_vs_cpu(frame, out, expect):
     return lines
 
 
+def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card):
+    """Every kept B1 and B2 call (``kernel_calls``) again, held to its plain
+    version at its own shape (B1's plain version on the first ``plain_rows``
+    queries; B1 bitwise, B2 within 1e-6 of the largest sum) and timed beside
+    its bound, its plain version and, for B2, ``torch.segment_reduce``.
+    Returns the rows of B1 and of B2 for the kernels' JSON line."""
+    rows1 = []
+    for stage, t_, m_, q_ in calls["nn1"]:
+        n = min(len(q_), plain_rows)
+        ik, dk = nn1_mod.nn1(t_, m_, q_)
+        ip, dp = nn1_mod.nn1_plain(t_, m_, q_[:n])
+        nd, dd = int((ik[:n] != ip).sum()), float((dk[:n] - dp).abs().max())
+        expect(nd == 0 and dd == 0.0, f"B1 differs from its plain version at {stage} "
+                                      f"{len(q_)} x {len(t_)}: {nd} indices, d2 by {dd}")
+        ms = cuda_ms(lambda: nn1_mod.nn1(t_, m_, q_), reps=5)
+        plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t_, m_, q_[:n]), reps=1)
+        bound_s, bound_by = nn1_bound_ms(len(q_), len(t_))
+        rows1.append({"case": stage, "q": len(q_), "m": len(t_), "ms": ms, "plain_ms": plain_ms,
+                      "plain_rows": n, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                      "max_abs_err": dd})
+        print(f"{tag} nn1 at {stage} {len(q_)} x {len(t_)}: {ms:.3f} ms, bound "
+              f"{bound_s * 1e3:.4f} ms ({bound_by}), plain {plain_ms:.2f} ms on {n} queries; "
+              f"{nd} indices differ, max |d2 diff| {dd:.3e} [{card}]", flush=True)
+    rows2 = []
+    for stage, vals, seg_ in calls["segsum"]:
+        k_ = segsum.segment_sum_sorted(vals, seg_)
+        p_ = segsum.segment_sum_sorted_plain(vals, seg_)
+        err = float((k_ - p_).abs().max())
+        n_seg = int(seg_[seg_ < len(seg_)].max()) + 1
+        ms = cuda_ms(lambda: segsum.segment_sum_sorted(vals, seg_), reps=20)
+        plain_ms = cuda_ms(lambda: segsum.segment_sum_sorted_plain(vals, seg_), reps=5)
+        bound_s, bound_by = segsum_bound_ms(vals.shape[0], vals.shape[1], n_seg)
+        lengths = torch.bincount(torch.clamp(seg_, max=n_seg).long(), minlength=n_seg + 1)
+        library_ms = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths), reps=20)
+        expect(err <= 1e-6 * float(p_.abs().max()),
+               f"B2 differs from its plain version at {stage}")
+        rows2.append({"case": stage, "n": vals.shape[0], "w": vals.shape[1], "segments": n_seg,
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                      "bound_by": bound_by, "max_abs_err": err, "library_ms": library_ms})
+        print(f"{tag} segsum at {stage} {list(vals.shape)} -> {n_seg} segments: "
+              f"{ms * 1e3:.1f} us, bound {bound_s * 1e6:.2f} us ({bound_by}), plain "
+              f"{plain_ms * 1e3:.1f} us, torch.segment_reduce {library_ms * 1e3:.1f} us; max "
+              f"|kernel - plain| {err:.3e} [{card}]", flush=True)
+    return rows1, rows2
+
+
 def phase14_path_l(segsum, nn1_mod, record_b1, record_b2):
     """Path L: surface reconstruction and the rest of segmentation on path
     G's room, frame 0, at VGA and 1 cm voxels."""
@@ -4668,47 +4729,576 @@ def phase14_path_l(segsum, nn1_mod, record_b1, record_b2):
     print(f"phase 14: (e) card against CPU ({csecs:.1f} s): " + "; ".join(lines), flush=True)
 
     # (f) every kernel call of the path against its plain version at its shape
-    rows1 = []
-    for stage, t_, m_, q_ in calls["nn1"]:
-        n = min(len(q_), L_PLAIN_ROWS)
-        ik, dk = nn1_mod.nn1(t_, m_, q_)
-        ip, dp = nn1_mod.nn1_plain(t_, m_, q_[:n])
-        nd, dd = int((ik[:n] != ip).sum()), float((dk[:n] - dp).abs().max())
-        expect(nd == 0 and dd == 0.0, f"(f) B1 differs from its plain version at {stage} "
-                                      f"{len(q_)} x {len(t_)}: {nd} indices, d2 by {dd}")
-        ms = cuda_ms(lambda: nn1_mod.nn1(t_, m_, q_), reps=5)
-        plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t_, m_, q_[:n]), reps=1)
-        bound_s, bound_by = nn1_bound_ms(len(q_), len(t_))
-        rows1.append({"case": stage, "q": len(q_), "m": len(t_), "ms": ms, "plain_ms": plain_ms,
-                      "plain_rows": n, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-                      "max_abs_err": dd})
-        print(f"phase 14: (f) nn1 at {stage} {len(q_)} x {len(t_)}: {ms:.3f} ms, bound "
-              f"{bound_s * 1e3:.4f} ms ({bound_by}), plain {plain_ms:.2f} ms on {n} queries; "
-              f"{nd} indices differ, max |d2 diff| {dd:.3e} [{card}]", flush=True)
+    rows1, rows2 = hold_to_plain(calls, nn1_mod, segsum, expect, "phase 14: (f)", L_PLAIN_ROWS,
+                                 card)
     record_b1["path_l"] = rows1
-    rows2 = []
-    for stage, vals, seg_ in calls["segsum"]:
-        k_ = segsum.segment_sum_sorted(vals, seg_)
-        p_ = segsum.segment_sum_sorted_plain(vals, seg_)
-        err = float((k_ - p_).abs().max())
-        n_seg = int(seg_[seg_ < len(seg_)].max()) + 1
-        ms = cuda_ms(lambda: segsum.segment_sum_sorted(vals, seg_), reps=20)
-        plain_ms = cuda_ms(lambda: segsum.segment_sum_sorted_plain(vals, seg_), reps=5)
-        bound_s, bound_by = segsum_bound_ms(vals.shape[0], vals.shape[1], n_seg)
-        lengths = torch.bincount(torch.clamp(seg_, max=n_seg).long(), minlength=n_seg + 1)
-        library_ms = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths), reps=20)
-        expect(err <= 1e-6 * float(p_.abs().max()),
-               f"(f) B2 differs from its plain version at {stage}")
-        rows2.append({"case": stage, "n": vals.shape[0], "w": vals.shape[1], "segments": n_seg,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-                      "bound_by": bound_by, "max_abs_err": err, "library_ms": library_ms})
-        print(f"phase 14: (f) segsum at {stage} {list(vals.shape)} -> {n_seg} voxels: "
-              f"{ms * 1e3:.1f} us, bound {bound_s * 1e6:.2f} us ({bound_by}), plain "
-              f"{plain_ms * 1e3:.1f} us, torch.segment_reduce {library_ms * 1e3:.1f} us; max "
-              f"|kernel - plain| {err:.3e} [{card}]", flush=True)
     record_b2["path_l"] = rows2
     check(not failed, "path L: " + "; ".join(failed))
     return {"total_s": total, "peak_gib": peak, "secs": secs, "parts": parts}
+
+
+# ---------------------------------------------------------------- path M
+
+M_FULL = dict(
+    leaf=LEAF, depth=10,            # 0.2 m leaves, 1024 a side: 204.8 m
+    queries=4096,                   # (c), (e): query points drawn from each scan
+    rays=4096,                      # (f): rays from the sensor to a subsample of each scan
+    box=10.0,                       # (c): side of the box about the sensor (m)
+    voxel_cap=32, min_ray_steps=600,   # (f): >= 60 m at half-leaf steps of 0.1 m
+    angular_deg=0.5, width=720, height=360,   # (i): the JAX defaults
+    planar_focal=G_INTR[0],          # (i): path G's VGA frame at fx 525
+    narf=dict(n_beams=36, rotation_invariant=True),
+    seed=11)
+M_CPU_POINTS = 8192                 # card against CPU: this many points of scans 0 and 1
+M_PLAIN_ROWS = 1 << 15              # B1's plain version on the first rows of a call
+M_EDGE = 1e-4                       # pixels: a point this near a pixel edge is left out
+M_CENTROID_TOL = 1e-5               # m: centroids against float64 means
+
+
+def path_m_inputs(scans, golden, n_scans=None, n_points=None):
+    """Path C's scans in their own frames and in scan 0's frame (each moved
+    by its golden pose, float32), the sensors' positions in scan 0's frame,
+    and the shared tree origin: the least coordinate of every scan."""
+    n_scans = len(scans) if n_scans is None else n_scans
+    own = [np.asarray(s[:n_points], np.float32) for s in scans[:n_scans]]
+    world = [(s.astype(np.float64) @ g[:3, :3].T + g[:3, 3]).astype(np.float32)
+             for s, g in zip(own, golden)]
+    sensors = np.stack([g[:3, 3] for g in golden[:n_scans]]).astype(np.float32)
+    origin = np.min(np.concatenate(world), 0).astype(np.float32)
+    return dict(own=own, world=world, sensors=sensors, origin=origin)
+
+
+def _m_queries(world, M):
+    """(c)'s query points of each scan: points drawn from it, and the same
+    moved by up to 1 m on each axis (some in empty voxels), seeded."""
+    rng = np.random.default_rng(M["seed"])
+    out = []
+    for w in world:
+        q = w[rng.choice(len(w), M["queries"], replace=False)]
+        jit = (q + rng.uniform(-1, 1, q.shape)).astype(np.float32)
+        rays = w[rng.choice(len(w), M["rays"], replace=False)]
+        out.append((q, jit, rays))
+    return out
+
+
+def m_rays(sensor: np.ndarray, ends: np.ndarray, M):
+    """Rays from the sensor to ``ends``: every direction is ``(end - sensor) /
+    L`` for the longest ray's length ``L`` and ``max_range`` is ``L``, so the
+    samples of each ray clamp at its own end, at steps of at most half a
+    leaf. Returns ``(origins, directions, max_range, max_steps)``."""
+    d = (ends - sensor).astype(np.float32)
+    L = float(np.sqrt((d.astype(np.float64) ** 2).sum(1)).max())
+    steps = max(M["min_ray_steps"], int(math.ceil(L / (0.5 * M["leaf"]))) + 2)
+    direction = (d / np.float32(L)).astype(np.float32)
+    return np.broadcast_to(sensor, d.shape).astype(np.float32), direction, L, steps
+
+
+def path_m_chain(inp, frame_xyz, M, dev, on_stage=None):
+    """Path M on the port, on ``dev``: PCL's octree tutorials on the scans in
+    scan 0's frame, one shared origin ((a)-(h)), and PCL's range-image and
+    NARF tutorials on each scan in its own frame and on path G's frame
+    ((i), (j)). Returns ``(out, seconds)``: host arrays and each call's host
+    time (``"(a) build 0"`` and so on). ``on_stage(name)`` is told each
+    call's name before it runs."""
+    from pcl_tpu_torch import features, octree
+    from pcl_tpu_torch.core import range_image
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.octree import iterators
+    from pcl_tpu_torch.octree.containers import leaf_keys
+    from pcl_tpu_torch.octree.double_buffer import DoubleBufferedOctree
+    from pcl_tpu_torch.search import bruteforce
+
+    out, secs = {}, {}
+
+    def run(name, fn):
+        if on_stage is not None:
+            on_stage(name)
+        t0 = _stamp(dev)
+        r = fn()
+        secs[name] = _stamp(dev) - t0
+        return r
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def h(x):
+        return x.cpu().numpy()
+
+    world = [t(w) for w in inp["world"]]
+    masks = [torch.ones(len(w), dtype=torch.bool, device=dev) for w in world]
+    origin = t(inp["origin"])
+    S = len(world)
+    qs = _m_queries(inp["world"], M)
+    leaf, depth = M["leaf"], M["depth"]
+    trees = []
+    for k in range(S):
+        tree = run(f"(a) build {k}", lambda: octree.build(world[k], masks[k], leaf, origin=origin,
+                                                            depth=depth))
+        trees.append(tree)
+        out[f"keys {k}"], out[f"order {k}"], out[f"mask {k}"] = \
+            h(tree.keys), h(tree.order), h(tree.mask)
+    for k in range(S - 1):
+        out[f"change {k + 1}"] = h(run(f"(b) change_detection {k + 1}",
+                                       lambda: octree.change_detection(trees[k + 1], trees[k])))
+    dbo = DoubleBufferedOctree(resolution=leaf, depth=depth, origin=inp["origin"],
+                               device=str(dev))
+
+    def buffer(k):
+        if k:
+            dbo.switch_buffers()
+        dbo.set_cloud(world[k], masks[k])
+        return (dbo.new_leaf_keys(), dbo.removed_leaf_keys(), dbo.new_point_indices(),
+                dbo.xor_serialize())
+
+    for k in range(S):
+        (out[f"new leaves {k}"], out[f"removed leaves {k}"], out[f"new points {k}"],
+         out[f"xor {k}"]) = run(f"(b) double buffer {k}", lambda: buffer(k))
+    for k in range(S):
+        q, jit, _ = (t(a) for a in qs[k])
+        sensor = inp["sensors"][k]
+        idx, valid = run(f"(c) voxel_search {k}",
+                         lambda: octree.voxel_search(trees[k], q, cap=M["voxel_cap"]))
+        out[f"voxel idx {k}"], out[f"voxel valid {k}"] = h(idx), h(valid)
+        lo, hi = t(sensor - M["box"] / 2), t(sensor + M["box"] / 2)
+        bidx, bvalid, bcount = run(f"(c) box_search {k}", lambda: octree.box_search(
+            trees[k], lo, hi, world[k], cap=len(inp["world"][k])))
+        out[f"box idx {k}"], out[f"box valid {k}"], out[f"box count {k}"] = \
+            h(bidx), h(bvalid), int(bcount)
+        out[f"occupied {k}"] = h(run(f"(c) is_voxel_occupied {k}",
+                                     lambda: octree.is_voxel_occupied(trees[k], jit)))
+    for k in range(S):
+        c, n, nl = run(f"(d) leaf_centroids {k}", lambda: octree.leaf_centroids(trees[k],
+                                                                                 world[k]))
+        out[f"centroids {k}"], out[f"counts {k}"], out[f"leaves {k}"] = h(c), h(n), int(nl)
+
+        def levels():
+            return [int(octree.at_depth(trees[k], lv)[1].sum()) for lv in range(depth + 1)]
+        out[f"at_depth {k}"] = run(f"(d) at_depth (every level) {k}", levels)
+    for k in range(S):
+        keys, nbr, nl = run(f"(e) adjacency {k}", lambda: octree.adjacency(trees[k]))
+        out[f"adjacency keys {k}"], out[f"adjacency {k}"] = h(keys), h(nbr)
+        grid = run(f"(e) occupancy_from_tree {k}", lambda: octree.occupancy_from_tree(trees[k]))
+        nxt = (k + 1) % S
+        grid2 = run(f"(e) set_occupied {k}",
+                    lambda: octree.set_occupied(grid, world[nxt], masks[nxt]))
+        out[f"grid {k}"], out[f"grid2 {k}"], out[f"grid2 n {k}"] = \
+            h(grid.keys), h(grid2.keys), int(grid2.n_occupied)
+        out[f"is_occupied {k}"] = h(run(f"(e) is_occupied {k}",
+                                        lambda: octree.is_occupied(grid2, t(qs[k][1]))))
+    for k in range(S):
+        o, d, L, steps = m_rays(inp["sensors"][k], qs[k][2], M)
+        rk, rv = run(f"(f) ray_intersected_voxels {k}", lambda: octree.ray_intersected_voxels(
+            trees[k], t(o), t(d), L, max_steps=steps))
+        out[f"ray keys {k}"], out[f"ray valid {k}"] = h(rk), h(rv)
+        out[f"ray setup {k}"] = (o, d, L, steps)
+    for k in range(S - 1):
+        xs = world[k][trees[k].order.long()]
+        ai, ad = run(f"(g) approx_nearest_search {k + 1}",
+                     lambda: octree.approx_nearest_search(trees[k], xs, world[k + 1]))
+        ei, ed = run(f"(g) exact nn1 (B1) {k + 1}",
+                     lambda: bruteforce.nn1(xs, trees[k].mask, world[k + 1]))
+        out[f"approx {k + 1}"], out[f"exact {k + 1}"] = (h(ai), h(ad)), (h(ei), h(ed))
+    out["node counts"] = run("(h) node_counts_per_depth 0",
+                             lambda: iterators.node_counts_per_depth(trees[0]))
+    out["preorder"] = run("(h) depth_first_iterator 0",
+                          lambda: sum(1 for _ in iterators.depth_first_iterator(trees[0])))
+    out["leaf keys 0"] = h(leaf_keys(trees[0])[0])
+    res = math.radians(M["angular_deg"])
+    for k in range(S):
+        cloud = make_cloud(t(inp["own"][k]), device=dev)
+        ri = run(f"(i) create_from_cloud {k}", lambda: range_image.create_from_cloud(
+            cloud, res, M["width"], M["height"]))
+        back = run(f"(i) to_cloud {k}", lambda: range_image.to_cloud(ri))
+        out[f"image {k}"], out[f"back {k}"], out[f"back mask {k}"] = \
+            h(ri.ranges), h(back.xyz), h(back.mask)
+        b = run(f"(j) extract_borders {k}", lambda: features.extract_borders(ri))
+        out[f"borders {k}"], out[f"border score {k}"] = h(b.border_type), h(b.border_score)
+        rc, val, ok = run(f"(j) narf_keypoints {k}", lambda: features.narf_keypoints(ri))
+        out[f"keypoints {k}"] = (h(rc), h(val), h(ok))
+        out[f"descriptors {k}"] = h(run(f"(j) narf_descriptors {k}", lambda: features.
+                                        narf_descriptors(ri, rc, **M["narf"])))
+    Hh, Ww = frame_xyz.shape[:2]
+    fc = make_cloud(t(frame_xyz.reshape(-1, 3)), t((frame_xyz[..., 2] > 0).reshape(-1)),
+                    device=dev)
+    pri = run("(i) create_planar_from_cloud", lambda: range_image.create_planar_from_cloud(
+        fc, M["planar_focal"], Ww, Hh))
+    out["planar"] = h(pri.ranges)
+    return out, secs
+
+
+def _np_spread3(v):
+    v = v & 0x3FF
+    for s, m in ((16, 0x30000FF), (8, 0x300F00F), (4, 0x30C30C3), (2, 0x9249249)):
+        v = (v | (v << s)) & m
+    return v
+
+
+def np_morton(cells: np.ndarray) -> np.ndarray:
+    c = cells.astype(np.int64)
+    return (_np_spread3(c[..., 0]) | (_np_spread3(c[..., 1]) << 1)
+            | (_np_spread3(c[..., 2]) << 2)).astype(np.int32)
+
+
+def np_keys(p: np.ndarray, origin: np.ndarray, M, truncate: bool = False) -> np.ndarray:
+    """Morton keys of float32 points as the port casts them: ``floor`` (or,
+    with ``truncate``, truncation) of the float32 cell, clipped."""
+    f = (p - origin) / np.float32(M["leaf"])
+    c = np.trunc(f) if truncate else np.floor(f)
+    return np_morton(np.clip(c, 0, (1 << M["depth"]) - 1).astype(np.int64))
+
+
+def pixel_coords(p: np.ndarray, M, planar: bool):
+    """float64 pixel coordinates ``(a, b)`` of points in the sensor frame and
+    their ranges."""
+    p = p.astype(np.float64)
+    r = np.sqrt((p ** 2).sum(1))
+    with np.errstate(all="ignore"):
+        if planar:
+            f = M["planar_focal"]
+            a, b = f * p[:, 0] / p[:, 2], f * p[:, 1] / p[:, 2]
+        else:
+            res = math.radians(M["angular_deg"])
+            a, b = np.arctan2(p[:, 0], p[:, 2]) / res, np.arcsin(p[:, 1] / r) / res
+    return a, b, r
+
+
+def _pixels(p: np.ndarray, M, planar: bool, H: int, W: int):
+    """``(a, b, r, ok, near)``: float64 pixel coordinates and ranges of the
+    points, which of them project, and which lie within ``M_EDGE`` of a
+    pixel edge."""
+    a, b, r = pixel_coords(p, M, planar)
+    a, b = a + W / 2.0, b + H / 2.0
+    ok = np.isfinite(a) & np.isfinite(b) & (r > 0) & ((p[:, 2] > 0) if planar else True)
+    near = ok & ((np.abs(a - np.round(a)) < M_EDGE) | (np.abs(b - np.round(b)) < M_EDGE))
+    return a, b, r, ok, near
+
+
+def edge_free_pixels(p: np.ndarray, M, planar: bool, H: int, W: int):
+    """``[H W]`` bool: the pixels no point within ``M_EDGE`` of a pixel edge
+    can reach, and the number of such points."""
+    a, b, _, _, near = _pixels(p, M, planar, H, W)
+    check = np.ones(H * W, bool)
+    for da in (-M_EDGE, M_EDGE):
+        for db in (-M_EDGE, M_EDGE):
+            u, v = np.floor(a[near] + da), np.floor(b[near] + db)
+            inb = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+            check[(v[inb] * W + u[inb]).astype(np.int64)] = False
+    return check, int(near.sum())
+
+
+def zbuffer_check(p: np.ndarray, img: np.ndarray, M, planar: bool):
+    """The image against a float64 z-buffer of ``p``: pixels that a point
+    within ``M_EDGE`` of a pixel edge can reach are left out. Returns
+    ``(n_bad, n_near_points, n_checked, argmin point per checked pixel,
+    checked pixels)``."""
+    H, W = img.shape
+    a, b, r, ok, near = _pixels(p, M, planar, H, W)
+    check, _ = edge_free_pixels(p, M, planar, H, W)
+    u, v = np.floor(a), np.floor(b)
+    land = ok & ~near & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    flat = (v[land] * W + u[land]).astype(np.int64)
+    rr = r[land]
+    ref = np.full(H * W, np.inf)
+    np.minimum.at(ref, flat, rr)
+    got = img.reshape(-1).astype(np.float64)
+    seen = np.isfinite(ref) & check
+    bad = int((np.abs(got[seen] - ref[seen]) > 2.5e-7 * ref[seen]).sum())
+    bad += int(((got > -np.inf) & ~np.isfinite(ref) & check).sum())   # a pixel no point reached
+    order = np.lexsort((rr, flat))
+    first = np.ones(len(order), bool)
+    first[1:] = flat[order][1:] != flat[order][:-1]
+    pix, who = flat[order][first], np.flatnonzero(land)[order][first]
+    keep = check[pix]
+    return bad, int(near.sum()), int(seen.sum()), who[keep], pix[keep]
+
+
+def path_m_checks(inp, frame_xyz, out, M):
+    """(a)-(j) against numpy on the same inputs. Returns ``(failed, metrics)``."""
+    failed, met = [], {}
+
+    def expect(cond, what):
+        if not cond:
+            failed.append(what)
+
+    S, origin, depth = len(inp["world"]), inp["origin"], M["depth"]
+    PAD = 2 ** 31 - 1
+    qs = _m_queries(inp["world"], M)
+    uniq = []
+    for k in range(S):
+        w = inp["world"][k]
+        keys, order, mask = out[f"keys {k}"], out[f"order {k}"], out[f"mask {k}"]
+        # (a)
+        expect(bool((np.diff(keys.astype(np.int64)) >= 0).all()), f"(a) scan {k}: keys not sorted")
+        kn = np_keys(w, origin, M)
+        cells = np.clip(np.floor((w - origin) / np.float32(M["leaf"])), 0, (1 << depth) - 1)
+        u = np.unique(kn)
+        uniq.append(u)
+        expect(len(np.unique(cells, axis=0)) == len(u) == len(np.unique(keys[mask])),
+               f"(a) scan {k}: leaf count differs from numpy's unique cells")
+        expect(np.array_equal(keys, kn[order]) and mask.all(), f"(a) scan {k}: keys differ")
+        met[f"leaves {k}"] = len(u)
+        # (b)
+        if k:
+            ch = ~np.isin(kn, uniq[k - 1])
+            expect(np.array_equal(out[f"change {k}"], ch), f"(b) scan {k}: change mask")
+            expect(np.array_equal(np.sort(out[f"new points {k}"]), np.flatnonzero(ch)),
+                   f"(b) scan {k}: new_point_indices is not the change mask's nonzero")
+            expect(np.array_equal(out[f"new leaves {k}"], np.setdiff1d(u, uniq[k - 1])) and
+                   np.array_equal(out[f"removed leaves {k}"], np.setdiff1d(uniq[k - 1], u)),
+                   f"(b) scan {k}: new or removed leaves")
+            met[f"new points {k}"] = int(ch.sum())
+        # (c)
+        q, jit, _ = qs[k]
+        qk = np_keys(q, origin, M)
+        lo, hi = np.searchsorted(keys, qk, "left"), np.searchsorted(keys, qk, "right")
+        pos = lo[:, None] + np.arange(M["voxel_cap"])[None, :]
+        valid = pos < hi[:, None]
+        idx = order[np.clip(pos, 0, len(keys) - 1)]
+        expect(np.array_equal(out[f"voxel valid {k}"], valid) and
+               np.array_equal(out[f"voxel idx {k}"][valid], idx[valid]),
+               f"(c) scan {k}: voxel_search")
+        s = inp["sensors"][k]
+        blo, bhi = s - np.float32(M["box"] / 2), s + np.float32(M["box"] / 2)
+        ws = w[order]
+        inside = np.all((ws >= blo) & (ws <= bhi), 1)
+        cnt = out[f"box count {k}"]
+        expect(cnt == int(inside.sum()) and np.array_equal(out[f"box idx {k}"][:cnt],
+                                                           order[inside]),
+               f"(c) scan {k}: box_search")
+        expect(np.array_equal(out[f"occupied {k}"], np.isin(np_keys(jit, origin, M), u)),
+               f"(c) scan {k}: is_voxel_occupied")
+        met[f"box {k}"] = cnt
+        # (d)
+        L = out[f"leaves {k}"]
+        counts = np.unique(kn, return_counts=True)[1]
+        expect(L == len(u) and np.array_equal(out[f"counts {k}"][:L], counts) and
+               (out[f"counts {k}"][L:] == 0).all(), f"(d) scan {k}: leaf counts")
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        means = np.add.reduceat(ws.astype(np.float64), starts, axis=0) / counts[:, None]
+        cerr = float(np.abs(out[f"centroids {k}"][:L] - means).max())
+        expect(cerr <= M_CENTROID_TOL, f"(d) scan {k}: centroids {cerr:.3e} m from float64")
+        met[f"centroid err {k}"] = cerr
+        expect(out[f"at_depth {k}"] == [len(np.unique(u >> (3 * (depth - lv))))
+                                        for lv in range(depth + 1)], f"(d) scan {k}: at_depth")
+        # (e)
+        cl = np.stack([_np_compact3(u), _np_compact3(u >> 1), _np_compact3(u >> 2)], 1)
+        offs = np.array([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)
+                         if (a, b, c) != (0, 0, 0)])
+        nc = cl[:, None, :] + offs[None]
+        inb = np.all((nc >= 0) & (nc < (1 << depth)), -1)
+        nk = np_morton(np.clip(nc, 0, (1 << depth) - 1))
+        p = np.clip(np.searchsorted(u, nk), 0, len(u) - 1)
+        nbr = np.where(inb & (u[p] == nk), p, -1)
+        adj = out[f"adjacency {k}"]
+        expect(np.array_equal(adj[:len(u)], nbr) and (adj[len(u):] == -1).all() and
+               np.array_equal(out[f"adjacency keys {k}"][:len(u)], u), f"(e) scan {k}: adjacency")
+        met[f"mean degree {k}"] = float((nbr >= 0).sum(1).mean())
+        g = out[f"grid {k}"]
+        expect(np.array_equal(g[:len(u)], u) and (g[len(u):] == PAD).all(),
+               f"(e) scan {k}: occupancy grid")
+        un = np.union1d(u, np_keys(inp["world"][(k + 1) % S], origin, M))
+        g2 = out[f"grid2 {k}"]
+        expect(out[f"grid2 n {k}"] == len(un) and np.array_equal(g2[:len(un)], un) and
+               (g2[len(un):] == PAD).all() and len(g2) == len(w) + len(inp["world"][(k + 1) % S]),
+               f"(e) scan {k}: set_occupied")
+        expect(np.array_equal(out[f"is_occupied {k}"], np.isin(np_keys(jit, origin, M), un)),
+               f"(e) scan {k}: is_occupied")
+        # (f)
+        o, d, Lr, steps = out[f"ray setup {k}"]
+        end = o + d * np.float32(Lr)
+        end_key = np_keys(end, origin, M, truncate=True)
+        own_key = np_keys(qs[k][2], origin, M)
+        rv, rk = out[f"ray valid {k}"], out[f"ray keys {k}"]
+        has = rv.any(1)
+        last = np.where(has, rk[np.arange(len(rk)), rv.shape[1] - 1 - np.argmax(rv[:, ::-1], 1)],
+                        -1)
+        same = end_key == own_key
+        expect(bool((last[same] == own_key[same]).all()),
+               f"(f) scan {k}: a ray's last hit is not its point's voxel")
+        met[f"rays ending off their voxel {k}"] = int((~same).sum())
+        met[f"occluded share {k}"] = float((rv.sum(1) > 1).mean())
+        met[f"ray steps {k}"] = steps
+    # (g)
+    for k in range(1, S):
+        xs = inp["world"][k - 1][out[f"order {k - 1}"]].astype(np.float64)
+        q = inp["world"][k].astype(np.float64)
+        (ai, ad), (ei, ed) = out[f"approx {k}"], out[f"exact {k}"]
+        da = ((q - xs[ai]) ** 2).sum(1)
+        de = ((q - xs[ei]) ** 2).sum(1)
+        slack = 2.0 ** -20 * ((q ** 2).sum(1) + (xs[ei] ** 2).sum(1))
+        expect(bool((da >= de - slack).all()), f"(g) scan {k}: an approximate d2 below the exact")
+        expect(bool((np.abs(ad - da) <= 1e-6 * np.maximum(da, 1e-6)).all()
+                    and (np.abs(ed - de) <= 1e-6 * np.maximum(de, 1e-6)).all()),
+               f"(g) scan {k}: a reported d2 is not its points' distance")
+        met[f"exact share {k}"] = float((da <= de).mean())
+        met[f"near-tie queries {k}"] = int(((da < de) & (da >= de - slack)).sum())
+    # (h)
+    nodes = [len(np.unique(uniq[0] >> (3 * (depth - d_)))) for d_ in range(depth + 1)]
+    expect(out["node counts"] == nodes and out["preorder"] == sum(nodes),
+           "(h) node counts or the preorder's length")
+    met["nodes per depth"] = nodes
+    # (i), (j)
+    res = math.radians(M["angular_deg"])
+    for k in range(S):
+        img = out[f"image {k}"]
+        bad, near, n_chk, who, pix = zbuffer_check(inp["own"][k], img, M, False)
+        expect(bad == 0, f"(i) scan {k}: {bad} pixels are not their points' least range")
+        back = out[f"back {k}"][pix]
+        pts = inp["own"][k][who].astype(np.float64)
+        r = np.sqrt((pts ** 2).sum(1))
+        off = np.sqrt(((back - pts) ** 2).sum(1))
+        expect(bool((off <= r * res + 1e-5).all()), f"(i) scan {k}: to_cloud off its pixel")
+        expect(np.array_equal(out[f"back mask {k}"], np.isfinite(img.reshape(-1))),
+               f"(i) scan {k}: to_cloud's mask")
+        met[f"image {k}"] = (int(np.isfinite(img).sum()), near, n_chk)
+        rc, val, ok = out[f"keypoints {k}"]
+        desc = out[f"descriptors {k}"]
+        expect(bool(np.isfinite(out[f"border score {k}"]).all() and np.isfinite(val).all()
+                    and np.isfinite(desc).all() and ok.sum() <= len(ok) == 128
+                    and desc.shape == (128, M["narf"]["n_beams"])), f"(j) scan {k}: NARF")
+        met[f"keypoints {k}"] = int(ok.sum())
+        met[f"obstacle borders {k}"] = int((out[f"borders {k}"] == 1).sum())
+    p = frame_xyz.reshape(-1, 3)
+    bad, near, n_chk, _, _ = zbuffer_check(p[p[:, 2] > 0], out["planar"], M, True)
+    expect(bad == 0, f"(i) planar: {bad} pixels are not their points' least range")
+    met["planar"] = (int(np.isfinite(out["planar"]).sum()), near, n_chk)
+    return failed, met
+
+
+def _np_compact3(v):
+    v = v.astype(np.int64) & 0x9249249
+    for s, m in ((2, 0x30C30C3), (4, 0x300F00F), (8, 0x30000FF), (16, 0x3FF)):
+        v = (v | (v >> s)) & m
+    return v
+
+
+def m_card_vs_cpu(inp, frame_xyz, M, expect):
+    """Path M's chain on the card and in the port's CPU run on the same
+    small inputs: trees, keys, masks, searches, adjacency, occupancy, rays,
+    iterator counts and the range images (leaving out the pixels a point
+    within ``M_EDGE`` of an edge can reach: the devices' ``atan2`` may round
+    apart) equal; centroids and ``to_cloud`` within 1e-6 of their scale;
+    NARF on the CPU's images on both devices: borders, interest and
+    keypoints equal, descriptors within 1e-6. Returns printable lines."""
+    from pcl_tpu_torch import features
+    from pcl_tpu_torch.core.range_image import RangeImage
+
+    card, _ = path_m_chain(inp, frame_xyz, M, torch.device("cuda"))
+    cpu, _ = path_m_chain(inp, frame_xyz, M, torch.device("cpu"))
+    lines, skip = [], ("centroids", "back", "image", "planar", "borders", "border score",
+                       "keypoints", "descriptors", "ray setup")
+    for key in cpu:
+        if key.startswith(skip):
+            continue
+        a, b = card[key], cpu[key]
+        same = (all(np.array_equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple)
+                else np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+        expect(same, f"card against CPU: {key} differs")
+    S = len(inp["world"])
+    for k in range(S):
+        scale = float(np.abs(inp["world"][k]).max())
+        err = float(np.abs(card[f"centroids {k}"] - cpu[f"centroids {k}"]).max())
+        expect(err <= 1e-6 * scale, f"card against CPU: centroids {k} by {err:.3e}")
+        lines.append(f"centroids {k} within {err:.2e} m")
+    res = math.radians(M["angular_deg"])
+    for key, p, planar in [(f"image {k}", inp["own"][k], False) for k in range(S)] + [
+            ("planar", frame_xyz.reshape(-1, 3)[frame_xyz.reshape(-1, 3)[:, 2] > 0], True)]:
+        a, b = card[key], cpu[key]
+        check_px, n_near = edge_free_pixels(p, M, planar, *b.shape)
+        diff = ~((a == b) | (np.isneginf(a) & np.isneginf(b))).reshape(-1)
+        expect(not (diff & check_px).any(),
+               f"card against CPU: {key}: {int((diff & check_px).sum())} pixels differ")
+        lines.append(f"{key}: {int(diff.sum())} pixels differ, all within rounding of an edge "
+                     f"({n_near} points)")
+        if key == "planar":
+            continue
+        k = int(key.split()[1])
+        both = (np.isfinite(a) & np.isfinite(b) & (a == b)).reshape(-1)
+        r = a.reshape(-1)[both]
+        e = np.abs(card[f"back {k}"][both] - cpu[f"back {k}"][both]).max(1)
+        expect(bool((e <= 1e-6 * r).all()), f"card against CPU: to_cloud {k}")
+        ri = dict(ranges=b, angular_res=np.float32(res), center=np.float32(
+            [M["width"] / 2.0, M["height"] / 2.0]), sensor_pose=np.eye(4, dtype=np.float32))
+        outs = []
+        for dev in ("cuda", "cpu"):
+            img = RangeImage(**{n: torch.as_tensor(v, device=dev) for n, v in ri.items()},
+                             planar=False)
+            bd = features.extract_borders(img)
+            it = features.narf_interest_image(img)
+            rc, val, ok = features.narf_keypoints(img)
+            dsc = features.narf_descriptors(img, rc, **M["narf"])
+            outs.append([x.cpu().numpy() for x in (bd.border_type, bd.border_score, it, rc, val,
+                                                    ok, dsc)])
+        for name, x, y in zip(("borders", "border score", "interest", "keypoints",
+                               "keypoint interest", "keypoint valid"), outs[0], outs[1]):
+            expect(np.array_equal(x, y), f"card against CPU: NARF {name} of image {k}")
+        derr = float(np.abs(outs[0][-1] - outs[1][-1]).max())
+        expect(derr <= 1e-6, f"card against CPU: NARF descriptors of image {k} by {derr:.3e}")
+        lines.append(f"NARF {k}: descriptors within {derr:.2e}")
+    return lines
+
+
+def phase15_path_m(segsum, nn1_mod, scans, golden, record_b1, record_b2):
+    """Path M: PCL's octree, range-image and NARF tutorials on path C's six
+    scans at full width (0.2 m leaves, depth 10, one shared origin)."""
+    from pcl_tpu_torch.search import bruteforce
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 15: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    dev = torch.device("cuda")
+    inp = path_m_inputs(scans, golden)
+    frame_xyz = path_l_frame(L_FULL)["xyz"]
+    small = path_m_inputs(scans, golden, n_scans=2, n_points=M_CPU_POINTS)
+    M_small = dict(M_FULL, queries=1024, rays=1024)
+    _, wsecs = timed(lambda: path_m_chain(small, frame_xyz, M_small, dev))
+    print(f"phase 15: warm-up on {M_CPU_POINTS} points of two scans in {wsecs:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    with kernel_calls(bruteforce, segsum) as calls:
+        (out, secs), total = timed(lambda: path_m_chain(
+            inp, frame_xyz, M_FULL, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
+    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["M"] = b1
+    record_b2["launches_by_path"]["M"] = b2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = card_line()
+    S = len(scans)
+    print(f"phase 15: path M on {S} scans of {[len(w) for w in inp['world']]} points in "
+          f"{total:.2f} s, peak memory {peak:.2f} GiB, launches nn1 {b1}, segsum {b2} [{card}]",
+          flush=True)
+    by_call = {}
+    for name, v in secs.items():
+        base = name.rsplit(" ", 1)[0] if name[-1].isdigit() else name
+        by_call.setdefault(base, []).append(v)
+    for name, v in by_call.items():
+        print(f"phase 15: {name}: {np.mean(v) * 1e3:.3f} ms a call ({len(v)} calls, "
+              f"{min(v) * 1e3:.3f}-{max(v) * 1e3:.3f}) [{card}]", flush=True)
+    per_scan = [sum(v for n, v in secs.items() if n.endswith(f" {k}") and n[1] in "acdefij")
+                for k in range(S)]
+    print("phase 15: per scan (a), (c)-(f), (i), (j): "
+          + ", ".join(f"{v * 1e3:.1f}" for v in per_scan) + f" ms [{card}]", flush=True)
+    expect(b1 == S - 1 and b2 == S, f"path M launched B1 {b1} times (one a pair expected) and "
+                                    f"B2 {b2} times (one a scan)")
+    expect(len(calls["nn1"]) == b1 and len(calls["segsum"]) == b2,
+           "the kept kernel calls do not match the launch counts")
+    fails, met = path_m_checks(inp, frame_xyz, out, M_FULL)
+    for f in fails:
+        expect(False, f)
+    print("phase 15: metrics " + json.dumps(met, default=float), flush=True)
+    lines, csecs = timed(lambda: m_card_vs_cpu(small, frame_xyz, M_small, expect))
+    print(f"phase 15: card against CPU ({csecs:.1f} s): " + "; ".join(lines), flush=True)
+    rows1, rows2 = hold_to_plain(calls, nn1_mod, segsum, expect, "phase 15:", M_PLAIN_ROWS, card)
+    record_b1["path_m"] = rows1
+    record_b2["path_m"] = rows2
+    check(not failed, "path M: " + "; ".join(failed))
+    return {"total_s": total, "peak_gib": peak, "per_scan_s": per_scan}
 
 
 def main() -> int:
@@ -4786,12 +5376,15 @@ def main() -> int:
     lap("phase 13")
     out_l = phase14_path_l(segsum, nn1_mod, record, record_b2)
     lap("phase 14")
+    out_m = phase15_path_m(segsum, nn1_mod, scans, golden, record, record_b2)
+    lap("phase 15")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
         # H (the rest of registration), I (the sharded functions, one rank),
         # J (the filter front end), K (descriptors, keypoints, clusters),
-        # L (surface reconstruction and segmentation)
+        # L (surface reconstruction and segmentation), M (the octree, range
+        # images and NARF)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -4815,7 +5408,8 @@ def main() -> int:
           + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in out_j.items() if k != "ate")
           + "; path K ms per scan "
           + ", ".join(f"{k} {v[0] * 1e3:.1f}/{v[1] * 1e3:.1f}" for k, v in times_k.items())
-          + f"; path L {out_l['total_s']:.1f} s, peak {out_l['peak_gib']:.2f} GiB [{card}]",
+          + f"; path L {out_l['total_s']:.1f} s, peak {out_l['peak_gib']:.2f} GiB"
+          + f"; path M {out_m['total_s']:.2f} s, peak {out_m['peak_gib']:.2f} GiB [{card}]",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

@@ -18,3 +18,16 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from pcl_tpu_torch.core.cloud import Cloud, make_cloud, from_numpy, to_numpy
+from pcl_tpu_torch.core import transforms, geometry
+
+__all__ = [
+    "__version__",
+    "Cloud",
+    "make_cloud",
+    "from_numpy",
+    "to_numpy",
+    "transforms",
+    "geometry",
+]

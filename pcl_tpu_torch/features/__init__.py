@@ -1,8 +1,7 @@
 """Point-cloud features of pcl_tpu_torch (counterpart of ``pcl_tpu/features``).
 
-``__all__`` is the JAX package's list less the names of ``narf`` (which
-needs ``core/range_image``) and ``organized_edge`` (which needs
-``image/ops``), both left for ROADMAP item 22.
+``__all__`` is the JAX package's list less the names of ``organized_edge``
+(which needs ``image/ops``), left for ROADMAP item 22b.
 """
 
 from pcl_tpu_torch.features.normals import estimate_normals, flip_normals_towards_viewpoint
@@ -27,6 +26,10 @@ from pcl_tpu_torch.features.shape_context import estimate_3dsc, estimate_usc
 from pcl_tpu_torch.features.rops import estimate_rops, estimate_rops_mesh
 from pcl_tpu_torch.features.lrf import board_lrf, flare_lrf
 from pcl_tpu_torch.features.persistence import feature_persistence
+from pcl_tpu_torch.features.narf import (
+    extract_borders, narf_interest_image, narf_keypoints, narf_descriptors,
+    BorderDescription, BORDER_NONE, BORDER_OBSTACLE, BORDER_SHADOW,
+)
 from pcl_tpu_torch.features.color_features import (
     estimate_pfhrgb, ppfrgb_features, estimate_cppf,
 )
@@ -41,5 +44,7 @@ __all__ = [
     "estimate_our_cvfh", "estimate_crh", "crh_align", "ClusteredSignatures", "estimate_gasd",
     "estimate_gasd_color", "integral_image_normals", "estimate_3dsc", "estimate_usc",
     "estimate_rops", "estimate_rops_mesh", "board_lrf", "flare_lrf", "feature_persistence",
+    "extract_borders", "narf_interest_image", "narf_keypoints", "narf_descriptors",
+    "BorderDescription", "BORDER_NONE", "BORDER_OBSTACLE", "BORDER_SHADOW",
     "estimate_pfhrgb", "ppfrgb_features", "estimate_cppf",
 ]

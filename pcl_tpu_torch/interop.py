@@ -2,8 +2,9 @@
 
 Turns arrays that the JAX package produced, already converted to numpy by
 the caller (``np.asarray(jax_array)``), into the port's objects, so that a
-cloud, a cell table, a hash grid, an NDT grid, a TSDF volume or a KinFu
-tracker's state built there can be used here. This module reads only
+cloud, a cell table, a hash grid, an NDT grid, a TSDF volume, a KinFu
+tracker's state, a linear octree, an occupancy grid or a range image built
+there can be used here. This module reads only
 numpy arrays and plain values; it imports nothing of the JAX package.
 """
 
@@ -15,8 +16,11 @@ import numpy as np
 import torch
 
 from pcl_tpu_torch.core.cloud import Cloud, _device
+from pcl_tpu_torch.core.range_image import RangeImage
 from pcl_tpu_torch.fusion.kinfu import KinfuState
 from pcl_tpu_torch.fusion.tsdf import TSDFVolume
+from pcl_tpu_torch.octree.containers import OccupancyGrid
+from pcl_tpu_torch.octree.linear import LinearOctree
 from pcl_tpu_torch.registration.ndt import NDTGrid
 from pcl_tpu_torch.search.cell_list import CellTable
 from pcl_tpu_torch.search.hashgrid import HashGrid
@@ -169,4 +173,70 @@ def kinfu_state_from_arrays(
         prev_hit=torch.tensor(np.asarray(prev_hit, bool), device=dev),
         frame=torch.tensor(int(frame), dtype=torch.int32, device=dev),
         lost=torch.tensor(bool(lost), device=dev),
+    )
+
+
+def linear_octree_from_arrays(
+    origin: np.ndarray,
+    resolution,
+    depth: int,
+    keys: np.ndarray,
+    order: np.ndarray,
+    mask: np.ndarray,
+    device=None,
+) -> LinearOctree:
+    """A LinearOctree holding sorted keys built elsewhere, queried as it is."""
+    dev = _device(device)
+    keys = np.asarray(keys, np.int32)
+    if np.shape(order) != keys.shape or np.shape(mask) != keys.shape:
+        raise ValueError(f"octree keys {keys.shape}, order {np.shape(order)} and mask "
+                         f"{np.shape(mask)} are not one [N] shape")
+    return LinearOctree(
+        origin=torch.tensor(np.asarray(origin, np.float32), device=dev),
+        resolution=torch.tensor(np.float32(resolution), device=dev),
+        depth=int(depth),
+        keys=torch.tensor(keys, device=dev),
+        order=torch.tensor(np.asarray(order, np.int32), device=dev),
+        mask=torch.tensor(np.asarray(mask, bool), device=dev),
+    )
+
+
+def occupancy_grid_from_arrays(
+    keys: np.ndarray,
+    n_occupied,
+    origin: np.ndarray,
+    resolution,
+    depth: int,
+    device=None,
+) -> OccupancyGrid:
+    """An OccupancyGrid holding a sorted key set built elsewhere."""
+    dev = _device(device)
+    return OccupancyGrid(
+        keys=torch.tensor(np.asarray(keys, np.int32), device=dev),
+        n_occupied=torch.tensor(int(n_occupied), dtype=torch.int32, device=dev),
+        origin=torch.tensor(np.asarray(origin, np.float32), device=dev),
+        resolution=torch.tensor(np.float32(resolution), device=dev),
+        depth=int(depth),
+    )
+
+
+def range_image_from_arrays(
+    ranges: np.ndarray,
+    angular_res,
+    center: np.ndarray,
+    sensor_pose: np.ndarray,
+    planar: bool,
+    device=None,
+) -> RangeImage:
+    """A RangeImage holding ranges projected elsewhere."""
+    dev = _device(device)
+    ranges = np.asarray(ranges, np.float32)
+    if ranges.ndim != 2:
+        raise ValueError(f"range image {ranges.shape} is not [H, W]")
+    return RangeImage(
+        ranges=torch.tensor(ranges, device=dev),
+        angular_res=torch.tensor(np.float32(angular_res), device=dev),
+        center=torch.tensor(np.asarray(center, np.float32), device=dev),
+        sensor_pose=torch.tensor(np.asarray(sensor_pose, np.float32), device=dev),
+        planar=bool(planar),
     )

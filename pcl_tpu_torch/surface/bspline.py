@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import Cloud
 
 
@@ -76,11 +77,13 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 def _uv_cells(uv: torch.Tensor, gu: int, gv: int):
     """Normalized ``(u, v)`` in ``[0, 1]`` -> cell indices and fractions,
-    clamped to the boundary cells."""
+    clamped to the boundary cells. A NaN ``(u, v)`` (a cloud with no valid
+    point) passes the clip and takes cell 0 with a NaN fraction, as XLA's
+    cast gives it (ROADMAP F5, C71)."""
     pu = _clip(uv[:, 0] * (gu - 3), 0.0, gu - 3 - 1e-6)
     pv = _clip(uv[:, 1] * (gv - 3), 0.0, gv - 3 - 1e-6)
-    iu = torch.floor(pu).to(torch.int64)
-    iv = torch.floor(pv).to(torch.int64)
+    iu = xla_int32(torch.floor(pu)).to(torch.int64)
+    iv = xla_int32(torch.floor(pv)).to(torch.int64)
     return iu, pu - iu, iv, pv - iv
 
 
@@ -258,7 +261,7 @@ def fit_trimmed_bspline_surface(cloud: Cloud, grid_u: int = 10, grid_v: int = 10
     rad = torch.linalg.vector_norm(rel, dim=1)
     nbins = 64
     two_pi = float(np.float32(2 * math.pi))
-    abin = torch.clamp(((torch.atan2(rel[:, 1], rel[:, 0]) / two_pi + 0.5) * nbins)
+    abin = torch.clamp(xla_int32((torch.atan2(rel[:, 1], rel[:, 0]) / two_pi + 0.5) * nbins)
                        .to(torch.int64), 0, nbins - 1)
     rmax = torch.full((nbins,), -math.inf, device=uv.device).scatter_reduce(
         0, abin, torch.where(cloud.mask, rad, 0.0), reduce="amax", include_self=False)
@@ -327,7 +330,7 @@ def _closed_curve_fit(points: torch.Tensor, w: torch.Tensor, theta: torch.Tensor
     dev = points.device
     two_pi = float(np.float32(2 * math.pi))
     t = (theta / two_pi + 0.5) * n_control
-    i0 = torch.floor(t).to(torch.int64)
+    i0 = xla_int32(torch.floor(t)).to(torch.int64)
     B = _cubic_basis(t - i0)
     N = points.shape[0]
     rows = torch.arange(N, device=dev)
@@ -372,7 +375,7 @@ def _eval_closed(control: torch.Tensor, t) -> torch.Tensor:
     t = torch.as_tensor(t, dtype=torch.float32, device=control.device)
     G = control.shape[0]
     s = t * G
-    i0 = torch.floor(s).to(torch.int64)
+    i0 = xla_int32(torch.floor(s)).to(torch.int64)
     B = _cubic_basis(s - i0)
     out = torch.zeros((t.shape[0], control.shape[1]), dtype=torch.float32, device=control.device)
     for a in range(4):

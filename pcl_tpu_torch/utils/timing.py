@@ -3,8 +3,9 @@
 Counterpart of ``pcl_tpu/utils/timing.py``: ``StopWatch``, the ``ScopeTime``
 context manager and the ``EventFrequency`` meter are host clocks; a caller
 that times device work synchronises first (``torch.cuda.synchronize()``).
-``time_call`` is the counterpart of the JAX package's ``time_jitted``: it
-synchronises the device around every timed call.
+``time_call`` is the counterpart of the JAX package's ``time_jitted``, and
+``time_jitted`` names the same function: it synchronises the device around
+every timed call.
 """
 
 from __future__ import annotations
@@ -85,3 +86,6 @@ def time_call(fn, *args, iters: int = 10, warmup: int = 2) -> float:
         times.append((time.perf_counter() - t0) * 1e3)
     times.sort()
     return times[len(times) // 2]
+
+
+time_jitted = time_call

@@ -1027,3 +1027,29 @@ def test_poisson_repeats_bitwise_on_card(cuda):
     V1, F1 = poisson.poisson_reconstruction(c, depth=6)
     V2, F2 = poisson.poisson_reconstruction(c, depth=6)
     assert np.array_equal(V1, V2) and np.array_equal(F1, F2) and len(F1) > 1000
+
+
+def test_leaf_centroids_launch_b2_once_and_match_cpu(cuda):
+    """``octree.leaf_centroids`` sums its sorted rows (xyz and a count) with
+    one B2 launch; the tree, counts and leaf count equal the CPU run's, the
+    centroids within 1e-6 of the coordinates' scale."""
+    from pcl_tpu_torch import octree
+
+    rng = np.random.default_rng(11)
+    xyz = (rng.uniform(-20, 20, size=(30, 3))[rng.integers(0, 30, 20000)]
+           + rng.normal(scale=0.4, size=(20000, 3))).astype(np.float32)
+    mask = rng.uniform(size=20000) > 0.05
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        x, m = torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev)
+        tree = octree.build(x, m, 0.25)
+        before = segsum.segment_sum_sorted.launches
+        c, n, nl = octree.leaf_centroids(tree, x)
+        launched = segsum.segment_sum_sorted.launches - before
+        out.append((tree, c.cpu(), n.cpu(), int(nl), launched))
+    (tc, cc, nc, lc, launched), (tp, cp, np_, lp, _) = out
+    assert launched == 1
+    assert all(torch.equal(getattr(tc, f).cpu(), getattr(tp, f))
+               for f in ("keys", "order", "mask", "origin"))
+    assert torch.equal(nc, np_) and lc == lp > 1000
+    assert float((cc - cp).abs().max()) <= 1e-6 * float(np.abs(xyz).max())

@@ -23,6 +23,7 @@ from pcl_tpu_torch.core import cloud as tcloud
 from pcl_tpu_torch.registration import graph as tgraph
 from pcl_tpu_torch.registration import graph_optimizer as tgo
 from pcl_tpu_torch import segmentation as tseg
+from pcl_tpu_torch.octree.double_buffer import DoubleBufferedOctree
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pcl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -100,7 +101,13 @@ def test_new_modules_are_covered():
                  "segmentation/advanced.py", "segmentation/graphcut.py", "ml/__init__.py",
                  "ml/kmeans.py", "tools/mls_smoothing.py", "tools/gp3_surface.py",
                  "tools/marching_cubes_reconstruction.py", "tools/poisson_reconstruction.py",
-                 "tools/compute_hull.py", "tools/crop_to_hull.py"):
+                 "tools/compute_hull.py", "tools/crop_to_hull.py", "core/casts.py",
+                 "core/spring.py", "core/intersections.py", "core/range_image.py",
+                 "octree/linear.py", "octree/ray.py", "octree/containers.py",
+                 "octree/double_buffer.py", "octree/iterators.py", "features/narf.py",
+                 "utils/logging.py", "utils/console.py", "utils/generate.py",
+                 "tools/timed_trigger_test.py", "tools/voxel_grid_occlusion_estimation.py",
+                 "tools/obj_rec_ransac_orr_octree_zprojection.py", "tools/generate.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -141,7 +148,7 @@ def _jax_exports(package: str):
 # the JAX modules left for later (ROADMAP item 22b), whose names the port's
 # packages do not export yet
 LEFT_FOR_LATER = {
-    "features": ("pcl_tpu.features.narf", "pcl_tpu.features.organized_edge"),
+    "features": ("pcl_tpu.features.organized_edge",),
     "keypoints": ("pcl_tpu.keypoints.corners2d",),
 }
 
@@ -155,9 +162,7 @@ def test_features_and_keypoints_export_the_jax_names(package):
     assert missing == {
         "features": ["organized_edge_detection", "edge_label_indices", "EDGELABEL_NAN_BOUNDARY",
                      "EDGELABEL_OCCLUDING", "EDGELABEL_OCCLUDED", "EDGELABEL_HIGH_CURVATURE",
-                     "EDGELABEL_RGB_CANNY", "extract_borders", "narf_interest_image",
-                     "narf_keypoints", "narf_descriptors", "BorderDescription", "BORDER_NONE",
-                     "BORDER_OBSTACLE", "BORDER_SHADOW"],
+                     "EDGELABEL_RGB_CANNY"],
         "keypoints": ["agast_keypoints", "brisk_keypoints", "brisk_descriptor",
                       "trajkovic_keypoints", "agast_score", "trajkovic_score"]}[package]
     port = importlib.import_module(f"pcl_tpu_torch.{package}")
@@ -169,6 +174,35 @@ def _exports_all(package):
     port = importlib.import_module(f"pcl_tpu_torch.{package}")
     assert port.__all__ == [n for n, _ in _jax_exports(package)]
     assert all(callable(getattr(port, n)) for n in port.__all__)
+
+
+@pytest.mark.parametrize("package", ["", ".core", ".utils"])
+def test_package_level_names_are_the_jax_packages(package):
+    """``pcl_tpu_torch``, ``.core`` and ``.utils`` export the JAX package's
+    names, in its order, each bound to something (ROADMAP F4)."""
+    jax_all = importlib.import_module(f"pcl_tpu{package}").__all__
+    port = importlib.import_module(f"pcl_tpu_torch{package}")
+    assert port.__all__ == jax_all
+    assert all(hasattr(port, name) for name in jax_all)
+
+
+def test_time_jitted_is_time_call():
+    timing = importlib.import_module("pcl_tpu_torch.utils.timing")
+    assert timing.time_jitted is timing.time_call
+
+
+def _port_imports(package: str):
+    path = ROOT / "pcl_tpu_torch" / package / "__init__.py"
+    return [a.asname or a.name for node in ast.parse(path.read_text()).body
+            if isinstance(node, ast.ImportFrom) for a in node.names]
+
+
+def test_octree_imports_the_jax_names_in_order():
+    """``pcl_tpu_torch.octree`` imports every name ``pcl_tpu/octree/__init__.py``
+    imports, in that order."""
+    assert _port_imports("octree") == [n for n, _ in _jax_exports("octree")]
+    port = importlib.import_module("pcl_tpu_torch.octree")
+    assert all(hasattr(port, n) for n, _ in _jax_exports("octree"))
 
 
 def test_segmentation_exports_the_ported_names():
@@ -217,11 +251,16 @@ def test_scan_sees_forbidden_imports(tmp_path):
     lambda: tseg.organized_multi_plane_segmentation(np.zeros((4, 4, 3)), np.zeros((4, 4, 3)),
                                                     np.ones((4, 4), bool)),
     lambda: tseg.UnaryClassifier().train([np.zeros((4, 2))], clusters_per_class=1),
+    lambda: interop.linear_octree_from_arrays(np.zeros(3), 0.1, 4, np.zeros(2), np.zeros(2),
+                                              np.ones(2)),
+    lambda: interop.range_image_from_arrays(np.zeros((2, 2)), 0.1, np.ones(2), np.eye(4), False),
+    lambda: DoubleBufferedOctree(resolution=0.1).set_cloud(np.zeros((4, 3)), np.ones(4, bool)),
 ], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays",
         "tsdf_volume_from_arrays", "make_volume", "build_edges_from_correspondences",
         "PoseGraph.optimize", "make_mesh", "initialize_multihost",
         "organized_connected_components", "organized_multi_plane_segmentation",
-        "UnaryClassifier.train"])
+        "UnaryClassifier.train", "linear_octree_from_arrays", "range_image_from_arrays",
+        "DoubleBufferedOctree.set_cloud"])
 def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

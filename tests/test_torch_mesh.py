@@ -21,6 +21,8 @@ import torch
 from scipy.spatial import cKDTree
 
 import torch_surface_scenes as S
+from pcl_tpu.core.cloud import Cloud as JCloud
+from pcl_tpu_torch.core.cloud import make_cloud
 
 jms = importlib.import_module("pcl_tpu.surface.mesh_smoothing")
 jbs = importlib.import_module("pcl_tpu.surface.bspline")
@@ -135,3 +137,36 @@ def test_bspline_curves_match_jax():
     assert max(cKDTree(ej).query(et)[0].max(), cKDTree(et).query(ej)[0].max()) <= 0.02
     assert np.abs(cKDTree(et).query(p3[m])[0]).mean() < 0.03
     assert np.array_equal(tbs.create_mesh_indices(4, 3, 7), jbs.create_mesh_indices(4, 3, 7))
+
+
+def _leaves(x, name=""):
+    """``(name, array)`` of every field of nested NamedTuples."""
+    if hasattr(x, "_fields"):
+        for f in x._fields:
+            yield from _leaves(getattr(x, f), f"{name}.{f}")
+    else:
+        yield name, _a(x)
+
+
+@pytest.mark.parametrize("fit", ["iterated", "trimmed"])
+def test_bspline_fits_return_on_an_all_invalid_cloud(fit):
+    """ROADMAP F5: with no valid point ``(u, v)`` is not finite; XLA's cast
+    takes a NaN cell to 0, and the port's does the same (C71), so both
+    packages return. Outputs agree within 1e-6 where both are finite; the
+    origin is finite in neither. (The re-parameterised ``(u, v)`` are NaN;
+    the JAX package's compiled clamp takes them to a bound, so its control
+    points come out finite where the port's are NaN.)"""
+    xyz = np.random.default_rng(3).uniform(size=(64, 3)).astype(np.float32)
+    jc = JCloud(xyz=jnp.asarray(xyz), mask=jnp.zeros(64, bool))
+    tc = make_cloud(xyz, np.zeros(64, bool), device="cpu")
+    fn = {"iterated": "fit_bspline_surface_iterated", "trimmed": "fit_trimmed_bspline_surface"}
+    sj, st = getattr(jbs, fn[fit])(jc, 8, 8), getattr(tbs, fn[fit])(tc, 8, 8)
+    n_both = 0
+    for (name, b), (_, a) in zip(_leaves(sj), _leaves(st)):
+        assert a.shape == b.shape, name
+        fin = np.isfinite(a) & np.isfinite(b)
+        assert np.abs(a[fin] - b[fin]).max(initial=0.0) <= 1e-6, name
+        n_both += int(fin.sum())
+        if name.endswith("origin"):
+            assert not np.isfinite(a).any() and not np.isfinite(b).any()
+    assert n_both >= 12          # the frame, the centroid and the scale at least
