@@ -152,14 +152,30 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    0.5 deg) held to a float64 z-buffer, ``to_cloud``, and a planar image of
    path G's VGA frame; (j) NARF borders, keypoints and descriptors; the
    chain on the card against the CPU on 8,192 points of two scans; B1 and
-   B2 held to their plain versions at the path's shapes.
+   B2 held to their plain versions at the path's shapes;
+16. path N, PCL's recognition tutorials on path L's room (frame 0 at VGA, its
+   1 cm voxels by B2; the box, sphere and cylinder as models, each the pixels
+   of its part in a render from path G's start turned 25 deg about it): (a)
+   SHOT correspondences, geometric consistency and Hough 3-D grouping, each
+   refined by SAC, for the box and the cylinder; (b) greedy, global and
+   Papazov verification of the box's instances (refined by trimmed ICP),
+   ObjRecRANSAC's result and three wrong poses; (c) ObjRecRANSAC of the box
+   and its pair-feature hash table; (d) LINEMOD from frame 0's box region,
+   detected in path G's frame 20, the box mask's distance map and erosion;
+   (e) the global pipeline (VFH and ESF databases of 8 views of each object's
+   whole surface, plane removal and clusters, recognition with ICP); (f) ISM
+   on the three models with FPFH, votes for the box; (g) a depth-patch forest
+   trained on frame 0, run on frame 20; the checks at 1.5 x the JAX package's
+   CPU rehearsal; the chain on the card against the CPU at 80 x 60 and on
+   2,048 voxels about the box; every B1 and B2 call held to its plain version.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
 0.08) m; path C's street and scans come from seed 0, the street with alleys
 from seed 7, path E's two scans of path C's street from seed 5, path F's route
 from seed 8, path G's room and camera from seed 9, path L's frame noise and
-colours from seed 10. Any failed check
+colours from seed 10, path N's model renders from seed 11 and its objects'
+surfaces from seed 12. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -3841,12 +3857,18 @@ def path_l_frame(L):
     with the colour of its surface and a little noise: ``xyz [H, W, 3]``,
     ``valid``, ``depth``, ``rgb``, ``part`` (the surface: ``L_NAMES``, -1
     where invalid) and the camera's ``pose``."""
+    return room_frame(L, handheld(np.random.default_rng(G_SEED), 1)[0], L_SEED)
+
+
+def room_frame(L, pose: np.ndarray, seed: int):
+    """The room seen from ``pose`` at ``L``'s shape and intrinsics, range
+    noise, dropped pixels and colour noise from ``default_rng(seed)``: the
+    keys of :func:`path_l_frame`."""
     from pcl_tpu_torch.fusion import Intrinsics
 
     intr = Intrinsics(*L["intr"])
     H, W = L["shape"]
-    pose = handheld(np.random.default_rng(G_SEED), 1)[0]
-    rng = np.random.default_rng(L_SEED)
+    rng = np.random.default_rng(seed)
     depth, _ = render_depth(pose, intr, H, W, rng)
     v, u = np.mgrid[0:H, 0:W]
     xyz = np.stack([(u - intr.cx) / intr.fx * depth, (v - intr.cy) / intr.fy * depth, depth], -1)
@@ -4599,29 +4621,42 @@ def l_card_vs_cpu(frame, out, expect):
     return lines
 
 
-def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card):
+def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card, time_once=False):
     """Every kept B1 and B2 call (``kernel_calls``) again, held to its plain
     version at its own shape (B1's plain version on the first ``plain_rows``
     queries; B1 bitwise, B2 within 1e-6 of the largest sum) and timed beside
     its bound, its plain version and, for B2, ``torch.segment_reduce``.
-    Returns the rows of B1 and of B2 for the kernels' JSON line."""
+    ``time_once`` times B1 once per shape (the first call of it; later calls
+    of that shape are held, not timed, and counted in its row). Returns the
+    rows of B1 and of B2 for the kernels' JSON line."""
     rows1 = []
+    by_shape = {}
     for stage, t_, m_, q_ in calls["nn1"]:
         n = min(len(q_), plain_rows)
         ik, dk = nn1_mod.nn1(t_, m_, q_)
         ip, dp = nn1_mod.nn1_plain(t_, m_, q_[:n])
-        nd, dd = int((ik[:n] != ip).sum()), float((dk[:n] - dp).abs().max())
+        nd, dd = int((ik[:n] != ip).sum()), float((dk[:n] - dp).abs().max()) if n else 0.0
         expect(nd == 0 and dd == 0.0, f"B1 differs from its plain version at {stage} "
                                       f"{len(q_)} x {len(t_)}: {nd} indices, d2 by {dd}")
+        shape = (len(q_), len(t_))
+        if time_once and shape in by_shape:
+            by_shape[shape]["calls"] += 1
+            by_shape[shape]["max_abs_err"] = max(by_shape[shape]["max_abs_err"], dd)
+            continue
         ms = cuda_ms(lambda: nn1_mod.nn1(t_, m_, q_), reps=5)
         plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t_, m_, q_[:n]), reps=1)
         bound_s, bound_by = nn1_bound_ms(len(q_), len(t_))
-        rows1.append({"case": stage, "q": len(q_), "m": len(t_), "ms": ms, "plain_ms": plain_ms,
-                      "plain_rows": n, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-                      "max_abs_err": dd})
+        row = {"case": stage, "q": len(q_), "m": len(t_), "ms": ms, "plain_ms": plain_ms,
+               "plain_rows": n, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+               "max_abs_err": dd, "calls": 1}
+        rows1.append(row)
+        by_shape[shape] = row
         print(f"{tag} nn1 at {stage} {len(q_)} x {len(t_)}: {ms:.3f} ms, bound "
               f"{bound_s * 1e3:.4f} ms ({bound_by}), plain {plain_ms:.2f} ms on {n} queries; "
               f"{nd} indices differ, max |d2 diff| {dd:.3e} [{card}]", flush=True)
+    if time_once:
+        print(f"{tag} nn1: {len(calls['nn1'])} calls held to the plain version, "
+              f"{len(rows1)} shapes timed", flush=True)
     rows2 = []
     for stage, vals, seg_ in calls["segsum"]:
         k_ = segsum.segment_sum_sorted(vals, seg_)
@@ -5301,6 +5336,731 @@ def phase15_path_m(segsum, nn1_mod, scans, golden, record_b1, record_b2):
     return {"total_s": total, "peak_gib": peak, "per_scan_s": per_scan}
 
 
+# ---------------------------------------------------------------- path N
+
+N_MODEL_SEED = 11           # the models' render (range noise, dropped pixels)
+N_SURFACE_SEED = 12         # the global database's surface samples
+N_TURN = 25.0               # deg: the models' camera turned about each object's vertical
+N_FRAME_G = 20              # path G's handheld frame that LINEMOD and the forest search
+N_OBJECTS = {3: "box", 4: "sphere", 5: "cylinder"}
+N_FULL = dict(
+    L=L_FULL, leaf=0.01, normal_k=16,
+    # PCL's correspondence_grouping.cpp parameters x 3 (its 1 m Kinect to this 1 cm grid)
+    key_leaf=0.03, shot_radius=0.06, match_d2=0.25, rf_radius=0.045, cg_size=0.03,
+    cg_thresh=5, hough_bin=0.03, hough_thresh=5.0, sac_threshold=0.03, sac_hypotheses=4096,
+    max_instances=4,
+    # global_hypothesis_verification.cpp: inlier 5 mm x 3, clutter radius 3 cm x 3
+    hv_points=2048, hv=dict(inlier_threshold=0.015), hv_global=dict(clutter_radius=0.09),
+    wrong_shift=0.3, tricp=dict(trim_fraction=0.7, max_iterations=30),
+    orr=dict(pair_dist=0.2, n_hypotheses=256), hash_bins=16, hash_pairs=2048,
+    lm_features=63, lm_threshold=0.8, gp_views=8,
+    gp_recognize=dict(n_candidates=3, refine_iterations=30),    # recognize_clusters' defaults
+    seg=dict(plane_threshold=0.02, cluster_tolerance=0.05, min_cluster_size=50, max_clusters=8),
+    ism_sampling=0.03, ism_clusters=184, fpfh_k=16,
+    face=dict(patch=24, n_pos=80, n_neg=160, stride=4, threshold=0.6),
+    surface_points=20_000)
+# 80 x 60 for the CPU tests (tests/test_torch_path_n.py) and the card-against-CPU run:
+# path L's small frame, lengths grown with the pixels
+N_SMALL = dict(
+    N_FULL, L=L_SMALL, leaf=0.04, key_leaf=0.08, shot_radius=0.24, rf_radius=0.18,
+    cg_size=0.12, cg_thresh=4, hough_bin=0.12, hough_thresh=4.0, sac_threshold=0.12,
+    sac_hypotheses=128, max_instances=2, hv_points=256, hv=dict(inlier_threshold=0.06),
+    hv_global=dict(clutter_radius=0.3), orr=dict(pair_dist=0.4, n_hypotheses=16,
+                                                 dist_tol=0.1, inlier_dist=0.1),
+    hash_bins=8, hash_pairs=256, lm_features=31, lm_threshold=0.6, gp_views=1,
+    seg=dict(plane_threshold=0.08, cluster_tolerance=0.2,
+                                  min_cluster_size=5, max_clusters=8),
+    ism_sampling=0.12, ism_clusters=24, fpfh_k=8,
+    face=dict(patch=8, n_pos=20, n_neg=40, stride=2, threshold=0.6), surface_points=2000,
+    gp_recognize=dict(n_candidates=2, refine_iterations=10))
+
+
+def _turned_about(pose: np.ndarray, centre, deg: float) -> np.ndarray:
+    """``pose`` turned by ``deg`` about the world's vertical (y) through
+    ``centre``."""
+    from scipy.spatial.transform import Rotation
+
+    R = np.eye(4)
+    R[:3, :3] = Rotation.from_euler("y", deg, degrees=True).as_matrix()
+    c = np.eye(4)
+    c[:3, 3] = centre
+    return c @ R @ np.linalg.inv(c) @ pose
+
+
+def object_surface(i: int, n: int, rng) -> np.ndarray:
+    """``n`` points on object ``i``'s whole surface (box, sphere, cylinder
+    with its top cap), uniform by area, centred on the object (float32)."""
+    if i == 3:
+        lo, hi = (np.array(b) for b in G_BOX)
+        ext = hi - lo
+        areas = np.array([ext[1] * ext[2], ext[0] * ext[2], ext[0] * ext[1]]).repeat(2)
+        face = rng.choice(6, n, p=areas / areas.sum())
+        p = lo + rng.random((n, 3)) * ext
+        ax = face // 2
+        p[np.arange(n), ax] = np.where(face % 2 == 0, lo[ax], hi[ax])
+        return (p - (lo + hi) / 2).astype(np.float32)
+    if i == 4:
+        v = rng.normal(size=(n, 3))
+        return (G_SPHERE[1] * v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+    (_, _), r, (y0, y1) = G_CYLINDER
+    side, cap = 2 * np.pi * r * (y1 - y0), np.pi * r * r
+    on_cap = rng.random(n) < cap / (side + cap)
+    th = rng.uniform(0, 2 * np.pi, n)
+    rho = np.where(on_cap, r * np.sqrt(rng.random(n)), r)
+    y = np.where(on_cap, y0, rng.uniform(y0, y1, n)) - 0.5 * (y0 + y1)
+    return np.stack([rho * np.cos(th), y, rho * np.sin(th)], 1).astype(np.float32)
+
+
+def path_n_inputs(N):
+    """Path N's host inputs: frame 0 of the room, each object's model (the
+    pixels of its part in a render from path G's start turned ``N_TURN``
+    about the object, in that camera's frame), path G's frame ``N_FRAME_G``
+    with the same colours, and each object's whole surface for the global
+    database."""
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    L = N["L"]
+    frame = path_l_frame(L)
+    intr = Intrinsics(*L["intr"])
+    H, W = L["shape"]
+    rng = np.random.default_rng(N_MODEL_SEED)
+    models = {}
+    for i in N_OBJECTS:
+        pose = _turned_about(frame["pose"], L_CENTERS[i], N_TURN)
+        depth, _ = render_depth(pose, intr, H, W, rng)
+        v, u = np.mgrid[0:H, 0:W]
+        xyz = np.stack([(u - intr.cx) / intr.fx * depth, (v - intr.cy) / intr.fy * depth,
+                        depth], -1).reshape(-1, 3).astype(np.float32)
+        ok = depth.reshape(-1) > 0
+        part = np.argmin(room_parts(to_world(xyz, pose)), 0)
+        models[i] = dict(xyz=xyz[ok & (part == i)], pose=pose)
+    g_pose = handheld(np.random.default_rng(G_SEED), N_FRAME_G + 1)[N_FRAME_G]
+    frame_g = room_frame(L, g_pose, L_SEED)
+    srng = np.random.default_rng(N_SURFACE_SEED)
+    surfaces = {N_OBJECTS[i]: object_surface(i, N["surface_points"], srng) for i in N_OBJECTS}
+    return dict(frame=frame, models=models, frame_g=frame_g, surfaces=surfaces)
+
+
+def _bbox(mask: np.ndarray):
+    """``(y0, x0, h, w)`` of a mask's True pixels."""
+    ys, xs = np.nonzero(mask)
+    return int(ys.min()), int(xs.min()), int(ys.max() - ys.min() + 1), int(xs.max() - xs.min() + 1)
+
+
+def face_patches(frame, N, rng):
+    """Depth patches of a frame for the forest: positives centred on sphere
+    pixels, negatives on other valid pixels, every patch inside the image."""
+    p = N["face"]["patch"]
+    h = p // 2
+    depth, part = frame["depth"], frame["part"]
+    H, W = depth.shape
+    inner = np.zeros((H, W), bool)
+    inner[h:H - h, h:W - h] = True
+
+    def take(mask, n):
+        ys, xs = np.nonzero(mask & inner)
+        pick = rng.choice(len(ys), size=min(n, len(ys)), replace=False)
+        return [depth[y - h:y - h + p, x - h:x - h + p].copy() for y, x in zip(ys[pick], xs[pick])]
+
+    return take(part == 4, N["face"]["n_pos"]), take((part != 4) & frame["valid"],
+                                                     N["face"]["n_neg"])
+
+
+def n_voxels(pts: np.ndarray, N, dev):
+    """1 cm voxels (B2) of host points, with k-NN normals (k = 16)."""
+    from pcl_tpu_torch import features, filters
+    from pcl_tpu_torch.core.cloud import make_cloud
+
+    c = make_cloud(pts, device=dev)
+    vox = live_rows(filters.voxel_downsample(c, N["leaf"]))
+    return features.estimate_normals(vox, k=N["normal_k"])
+
+
+def _correspondences(model, scene, N, dev):
+    """PCL's correspondence_grouping.cpp front end: model keypoints are every
+    model voxel, scene keypoints ``uniform_sample``; SHOT at the keypoints on
+    the voxels; each scene keypoint's nearest model descriptor, kept under
+    the squared-distance cut; BOARD frames. Returns the valid correspondences
+    only (host arrays): model and scene points, frames, and the model's
+    centroid."""
+    from pcl_tpu_torch import features, filters
+    from pcl_tpu_torch.registration.ia import feature_knn
+
+    skp = live_rows(filters.uniform_sample(scene, N["key_leaf"]))
+    md = features.estimate_shot(model, N["shot_radius"], surface=model)
+    sd = features.estimate_shot(skp, N["shot_radius"], surface=scene)
+    nn = feature_knn(sd, skp.mask, md, model.mask, 1)[:, 0].long()
+    d2 = torch.sum((sd - md[nn]) ** 2, dim=1)
+    ok = skp.mask & (d2 < N["match_d2"]) & (torch.sum(sd, dim=1) > 0)
+    mrf, mok = features.board_lrf(model, N["rf_radius"], surface=model)
+    srf, sok = features.board_lrf(skp, N["rf_radius"], surface=scene)
+    ok = ok & sok & mok[nn]
+    keep = torch.nonzero(ok)[:, 0]
+    mi = nn[keep]
+    return dict(model_pts=model.xyz[mi].cpu().numpy(), scene_pts=skp.xyz[keep].cpu().numpy(),
+                model_rf=mrf[mi].cpu().numpy(), scene_rf=srf[keep].cpu().numpy(),
+                centroid=model.xyz[model.mask].mean(0).cpu().numpy(),
+                n_keypoints=int(skp.mask.sum()))
+
+
+def path_n_front(inp, N, dev, run=None):
+    """Path N's front end on the port: the scene's and each model's voxels
+    with normals, and the SHOT correspondences of the box and of the
+    cylinder (host arrays)."""
+    run = run or (lambda name, fn: fn())
+    frame = inp["frame"]
+    scene = run("voxels + normals (scene)", lambda: n_voxels(
+        frame["xyz"].reshape(-1, 3)[frame["valid"].reshape(-1)], N, dev))
+    models = {i: run(f"voxels + normals ({N_OBJECTS[i]})",
+                     lambda i=i: n_voxels(inp["models"][i]["xyz"], N, dev)) for i in N_OBJECTS}
+    cor = {i: run(f"SHOT correspondences ({N_OBJECTS[i]})",
+                  lambda i=i: _correspondences(models[i], scene, N, dev)) for i in (3, 5)}
+    return dict(scene=scene, models=models, cor=cor)
+
+
+def hv_subsample(xyz: np.ndarray, N) -> np.ndarray:
+    """The verifiers' model: ``N["hv_points"]`` rows of ``xyz`` evenly
+    spaced by index."""
+    return xyz[np.linspace(0, len(xyz) - 1, min(N["hv_points"], len(xyz))).astype(np.int64)]
+
+
+def wrong_hypotheses(inp, N):
+    """(b)'s wrong poses of the box model: its true pose moved to the
+    sphere's and the cylinder's centres, and slid along the floor."""
+    frame = inp["frame"]
+    true = np.linalg.inv(frame["pose"]) @ inp["models"][3]["pose"]
+    box_c = to_camera(L_CENTERS[3], frame["pose"])
+    out = []
+    for where, p in (("at the sphere", L_CENTERS[4]), ("at the cylinder", L_CENTERS[5]),
+                     (f"slid {N['wrong_shift']} m", np.add(L_CENTERS[3], (N["wrong_shift"], 0, 0)))):
+        W = true.copy()
+        W[:3, 3] += to_camera(p, frame["pose"]) - box_c
+        out.append((f"wrong: {where}", W.astype(np.float32)))
+    return out
+
+
+def path_n_chain(inp, N, dev, gen_dev=None, draws=None, on_stage=None, front=None):
+    """Path N's main path on the port, on ``dev``: the front end (voxels,
+    normals, SHOT correspondences), then (a) correspondence grouping, (b)
+    hypothesis verification, (c) ObjRecRANSAC, (d) LINEMOD, (e) the global
+    pipeline, (f) ISM, (g) the depth-patch forest. Random draws come from
+    generators seeded per step on ``gen_dev`` (default ``dev``; a CPU
+    generator draws the same on either device), or from ``draws`` (the JAX
+    package's, keyed by step). ``front`` is :func:`path_n_front`'s result
+    when it has run already. Returns ``(out, seconds)``."""
+    from pcl_tpu_torch import features
+    from pcl_tpu_torch import recognition as rec
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.recognition import face_detection, grouping, ism, linemod, orr
+    from pcl_tpu_torch.recognition import verification
+
+    draws = draws or {}
+    gen_dev = torch.device(dev if gen_dev is None else gen_dev)
+    out, secs = {}, {}
+    part = ["(front)"]
+
+    def gen(seed):
+        g = torch.Generator(device=gen_dev)
+        g.manual_seed(seed)
+        return g
+
+    def run(name, fn):
+        if on_stage is not None:
+            on_stage(name)
+        t0 = _stamp(dev)
+        r = fn()
+        secs[f"{part[0]} {name}"] = _stamp(dev) - t0
+        return r
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    frame = inp["frame"]
+    if front is None:
+        front = path_n_front(inp, N, dev, run)
+    scene, models = front["scene"], front["models"]
+    out["scene_xyz"], out["scene_normal"] = (scene.xyz.cpu().numpy(),
+                                             scene.attrs["normal"].cpu().numpy())
+    out["models"] = {i: (m.xyz.cpu().numpy(), m.attrs["normal"].cpu().numpy())
+                     for i, m in models.items()}
+
+    # (a) correspondence grouping, the box and then the cylinder as the model
+    part[0] = "(a)"
+    out["groups"] = {}
+    for i in (3, 5):
+        name = N_OBJECTS[i]
+        cor = front["cor"][i]
+        mp, sp, ok = t(cor["model_pts"]), t(cor["scene_pts"]), t(np.ones(len(cor["model_pts"]),
+                                                                          bool))
+        res = {}
+        res["gc"] = run(f"geometric_consistency_grouping ({name})",
+                        lambda: rec.geometric_consistency_grouping(
+                            mp, sp, ok, gc_size=N["cg_size"], min_cluster_size=N["cg_thresh"],
+                            max_instances=N["max_instances"]))
+        res["hough"] = run(f"hough3d_grouping ({name})", lambda: rec.hough3d_grouping(
+            mp, sp, ok, t(cor["centroid"]), bin_size=N["hough_bin"],
+            threshold=N["hough_thresh"], max_instances=N["max_instances"],
+            model_rf=t(cor["model_rf"]), scene_rf=t(cor["scene_rf"]), use_interpolation=True))
+        for k in ("gc", "hough"):
+            key = f"sac {k} {name}"
+            smp = draws.get(key)
+            if smp is None:
+                smp = grouping.draw_grouping_samples(res[k], N["sac_hypotheses"], gen(7))
+            res[k + "_sac"] = run(f"refine_grouping_sac ({k}, {name})",
+                                  lambda k=k, smp=smp: grouping.refine_grouping_sac_core(
+                                      mp, sp, res[k], N["sac_threshold"],
+                                      [None if s is None else s.to(dev) for s in smp]))
+        out["groups"][i] = dict(
+            cor=cor, **{k: tuple(x.cpu().numpy() for x in v) for k, v in res.items()})
+
+    # (c) ObjRecRANSAC of the box, refined by trimmed ICP inside
+    part[0] = "(c)"
+    box = models[3]
+    orr_kw = dict(N["orr"])
+    o_draws = draws.get("orr")
+    if o_draws is None:
+        o_draws = run("draw_orr_samples", lambda: orr.draw_orr_samples(
+            scene, box, orr_kw["pair_dist"], orr_kw.get("dist_tol", 0.05),
+            orr_kw["n_hypotheses"], gen(3)))
+    out["orr"] = run("obj_rec_ransac (box)", lambda: rec.obj_rec_ransac(
+        box, scene, draws=[d.to(dev) for d in o_draws], **orr_kw))
+    h_draws = draws.get("hash")
+    if h_draws is None:
+        h_draws = orr.draw_oriented_point_pairs(box, orr_kw["pair_dist"], N["hash_pairs"],
+                                                orr_kw.get("dist_tol", 0.05), gen(4))
+    out["hash"] = run("pair_feature_hash_table (box)", lambda: rec.pair_feature_hash_table(
+        box, orr_kw["pair_dist"], N["hash_pairs"], orr_kw.get("dist_tol", 0.05),
+        N["hash_bins"], draws=[d.to(dev) for d in h_draws]))
+
+    # (b) verification of the box's hypotheses on a model subsample
+    part[0] = "(b)"
+    sub = t(hv_subsample(out["models"][3][0], N))
+    hyps, names = [], []
+    for k in ("gc_sac", "hough_sac"):
+        inst, _, Ts = out["groups"][3][k]
+        for j in np.nonzero(inst)[0]:
+            r = run(f"trimmed_icp ({k} {j})", lambda T=Ts[j]: orr.trimmed_icp(
+                box, scene, init=t(T), **N["tricp"]))
+            hyps.append(r.transform.cpu().numpy())
+            names.append(f"{k} {j}")
+    hyps.append(out["orr"][0])
+    names.append("orr")
+    for name, W in wrong_hypotheses(inp, N):
+        hyps.append(W)
+        names.append(name)
+    Ts = t(np.stack(hyps).astype(np.float32))
+    ok = torch.ones(len(hyps), dtype=torch.bool, device=dev)
+    out["hyp_T"], out["hyp_names"] = np.stack(hyps), names
+    out["hv"] = {}
+    for vname, fn, kw in (("greedy", verification.greedy_hypothesis_verification, N["hv"]),
+                          ("global", verification.global_hypothesis_verification,
+                           dict(N["hv"], **N["hv_global"])),
+                          ("papazov", verification.papazov_hypothesis_verification, N["hv"])):
+        out["hv"][vname] = run(f"{vname} verification", lambda fn=fn, kw=kw: fn(
+            sub, Ts, ok, scene.xyz, scene.mask, **kw)).cpu().numpy()
+
+    # (d) LINEMOD: a template of frame 0's box region, detected in frame N_FRAME_G
+    part[0] = "(d)"
+    fg = inp["frame_g"]
+    region = _bbox(frame["part"] == 3)
+    q0 = run("build_modality_maps (frame 0)", lambda: linemod.build_modality_maps(
+        t(frame["rgb"] * 255.0), t(frame["xyz"]), t(frame["valid"])))
+    tmpl = run("extract_template", lambda: linemod.extract_template(
+        q0, region, n_features=N["lm_features"]))
+    out["lm_template"] = tmpl
+    out["lm"] = run("line_rgbd_detect (frame g)", lambda: linemod.line_rgbd_detect(
+        t(fg["rgb"] * 255.0), t(fg["xyz"]), t(fg["valid"]), [tmpl],
+        threshold=N["lm_threshold"]))
+    bm = t(frame["part"] == 3)
+    out["dmap"] = run("distance_map (box mask)", lambda: orr.distance_map(bm)).cpu().numpy()
+    out["eroded"] = run("mask_erode (box mask)", lambda: orr.mask_erode(bm)).cpu().numpy()
+
+    # (e) the global pipeline on the objects' surfaces and the scene's voxels
+    part[0] = "(e)"
+    db = run("train_global_database (VFH)", lambda: rec.train_global_database(
+        inp["surfaces"], "vfh", n_views=N["gp_views"], device=dev))
+    clusters = run("segment_scene_clusters", lambda: rec.segment_scene_clusters(
+        scene, gen=gen(0), samples=draws.get("plane"), **N["seg"]))
+    out["gp_clusters"] = clusters
+    out["gp_vfh"] = run("recognize_clusters (VFH)", lambda: rec.recognize_clusters(
+        db, clusters, device=dev, **N["gp_recognize"]))
+    out["gp_db_views"] = db.views
+    eg = gen(5)
+    edb = run("train_global_database (ESF)", lambda: rec.train_global_database(
+        inp["surfaces"], "esf", n_views=N["gp_views"], device=dev, gen=eg))
+    out["gp_esf"] = run("recognize_clusters (ESF)", lambda: rec.recognize_clusters(
+        edb, clusters, device=dev, gen=eg, **N["gp_recognize"]))
+    out["gp_esf_views"] = edb.views
+
+    # (f) ISM on the three models, votes for the box in the scene
+    part[0] = "(f)"
+
+    def fpfh(pts, nrm):
+        c = make_cloud(pts, attrs={"normal": nrm}, device=dev)
+        return features.estimate_fpfh(c, k=min(N["fpfh_k"], len(pts) - 1))
+
+    mlist = [out["models"][i] for i in N_OBJECTS]
+    model = run("train_ism", lambda: ism.train_ism(
+        [m[0] for m in mlist], [m[1] for m in mlist], [0, 1, 2], fpfh,
+        sampling_size=N["ism_sampling"], n_clusters=N["ism_clusters"], device=dev,
+        init_indices=draws.get("ism"), gen=gen(6)))
+    out["ism_model"] = model
+    votes = run("find_objects (box)", lambda: ism.find_objects(
+        model, out["scene_xyz"], out["scene_normal"], 0, fpfh,
+        sampling_size=N["ism_sampling"], device=dev))
+    sigma = float(model.sigmas[0])
+    out["ism_peaks"] = run("find_strongest_peaks", lambda: ism.find_strongest_peaks(
+        votes[0], votes[1], 0, 10.0 * sigma, sigma))
+    out["ism_votes"] = len(votes[0])
+
+    # (g) the depth-patch forest: trained on frame 0, run on frame N_FRAME_G
+    part[0] = "(g)"
+    pos, neg = face_patches(frame, N, np.random.default_rng(13))
+    det = run("train_face_detector", lambda: face_detection.train_face_detector(
+        pos, neg, patch=N["face"]["patch"]))
+    out["faces"] = run("detect_faces (frame g)", lambda: face_detection.detect_faces(
+        det, fg["depth"], stride=N["face"]["stride"], threshold=N["face"]["threshold"]))
+    return out, secs
+
+
+def _surface_median(pts_cam: np.ndarray, pose: np.ndarray, i: int) -> float:
+    """Median distance of camera-frame points to object ``i``'s surface."""
+    if len(pts_cam) == 0:
+        return math.inf
+    return float(np.median(room_parts(to_world(pts_cam, pose))[i]))
+
+
+def _moved(T, pts):
+    T = np.asarray(T, np.float64)
+    return np.asarray(pts, np.float64) @ T[:3, :3].T + T[:3, 3]
+
+
+def path_n_metrics(inp, out, N) -> dict:
+    """Path N's measures from host arrays: each grouper's best instance on its
+    object, the verifiers' decisions, ObjRecRANSAC's pose, LINEMOD's IoU,
+    the global pipeline's labels and poses, ISM's peak and the forest's
+    detection."""
+    frame, fg = inp["frame"], inp["frame_g"]
+    pose = frame["pose"]
+    m = {}
+    for i, g in out["groups"].items():
+        mxyz = out["models"][i][0]
+        for k in ("gc", "hough", "gc_sac", "hough_sac"):
+            inst, mem, Ts = g[k]
+            errs = [_surface_median(_moved(Ts[j], mxyz), pose, i) for j in np.nonzero(inst)[0]]
+            m[f"{k} {N_OBJECTS[i]}"] = (min(errs) if errs else math.inf, int(inst.sum()),
+                                        [int(x) for x in mem.sum(1)])
+        m[f"correspondences {N_OBJECTS[i]}"] = (len(g["cor"]["model_pts"]),
+                                                g["cor"]["n_keypoints"])
+    bxyz = out["models"][3][0]
+    m["orr"] = (_surface_median(_moved(out["orr"][0], bxyz), pose, 3), out["orr"][1])
+    m["hash_pairs"] = out["hash"][1]
+    m["hyp_err"] = {n: _surface_median(_moved(T, bxyz), pose, 3)
+                    for n, T in zip(out["hyp_names"], out["hyp_T"])}
+    m["hv"] = {k: [bool(x) for x in v] for k, v in out["hv"].items()}
+    tm = out["lm_template"]
+    box_g = _bbox(fg["part"] == 3)
+    if out["lm"]:
+        d = out["lm"][0]
+        a = np.zeros(fg["part"].shape, bool)
+        a[d.y:d.y + tm.height, d.x:d.x + tm.width] = True
+        b = np.zeros_like(a)
+        b[box_g[0]:box_g[0] + box_g[2], box_g[1]:box_g[1] + box_g[3]] = True
+        m["lm"] = (_iou(a, b), d.score, len(out["lm"]))
+    else:
+        m["lm"] = (0.0, 0.0, 0)
+    m["dmap_max"] = float(out["dmap"].max())
+    m["eroded"] = int(out["eroded"].sum())
+    for key, views in (("gp_vfh", out["gp_db_views"]), ("gp_esf", out.get("gp_esf_views"))):
+        if views is None:
+            continue
+        rows = []
+        for cl, r in zip(out["gp_clusters"], out[key]):
+            obj = int(np.bincount(np.argmin(room_parts(to_world(cl, pose)), 0),
+                                  minlength=6).argmax())
+            if r is None:
+                rows.append((L_NAMES[obj], len(cl), None, math.inf))
+                continue
+            err = _surface_median(_moved(r.transform, views[r.view_index]), pose, obj) \
+                if obj in N_OBJECTS else math.inf
+            rows.append((L_NAMES[obj], len(cl), r.label, err))
+        m[key] = rows
+    centre = to_camera(L_CENTERS[3], pose)
+    m["ism"] = (float(np.linalg.norm(out["ism_peaks"][0][0] - centre))
+                if out["ism_peaks"] else math.inf, len(out["ism_peaks"]), out["ism_votes"])
+    if out["faces"]:
+        f = out["faces"][0]
+        h = f.size // 2
+        ys, xs = np.nonzero(fg["part"] == 4)
+        m["face"] = (float(np.sqrt(((ys - (f.y + h)) ** 2 + (xs - (f.x + h)) ** 2).min())),
+                     f.score, len(out["faces"]))
+    else:
+        m["face"] = (math.inf, 0.0, 0)
+    return m
+
+
+N_CPU_VOXELS = 2048       # card against CPU: this many scene voxels about the box
+N_PLAIN_ROWS = 1 << 18    # B1's plain version on the first rows of a large call
+N_ON_OBJECT = 0.075        # m: "on its object", a quarter of the objects' least width (0.3 m)
+# limits: 1.5 x the JAX package's CPU rehearsal at full width (tests/rehearse_path_n.py jax
+# on the port's CPU front end; the card takes its SAC and ObjRecRANSAC draws): the
+# best instance's median distance to its object (m) gc box 0.048919, gc_sac box 0.0039528,
+# gc cylinder 0.072680, hough cylinder 0.050655, gc_sac cylinder 0.0051987, hough_sac
+# cylinder 0.0057140 (SAC on its draws, tests/path_n_draws.npz); ObjRecRANSAC 0.0066503
+# (support 0.9396); the VFH view on the sphere's
+# cluster 0.020878; the forest's detection 0 px from the sphere. None: the rehearsal does not
+# meet the check (Hough on the box: 0.878 / 0.181 m; global verification accepts the box at
+# the sphere's centre; Papazov accepts nothing; LINEMOD's best window misses the box; the
+# global pipeline's labels; ISM's peak 0.946 m off), so it is printed (ROADMAP C80)
+N_LIMITS = dict(
+    groups={"gc box": 0.0734, "gc_sac box": 0.00593, "gc cylinder": 0.109,
+            "hough cylinder": 0.0760, "gc_sac cylinder": 0.00780, "hough_sac cylinder": 0.00858,
+            "hough box": None, "hough_sac box": None},
+    orr=0.00998,
+    hv={"greedy": {"orr": True, "wrong: at the sphere": False, "wrong: at the cylinder": False,
+                   "wrong: slid 0.3 m": False},
+        "global": {"orr": True, "wrong: at the sphere": None, "wrong: at the cylinder": False,
+                   "wrong: slid 0.3 m": False},
+        "papazov": {"orr": None, "wrong: at the sphere": False, "wrong: at the cylinder": False,
+                    "wrong: slid 0.3 m": False}},
+    lm=None, gp_labels={}, gp_err={"gp_vfh sphere": 0.0314}, ism=None, face=0.0)
+N_DRAWS = "tests/path_n_draws.npz"      # the rehearsal's draws (tests/rehearse_path_n.py draws)
+
+
+def _front_on(front, dev):
+    """``path_n_front``'s result moved to ``dev`` (the same host arrays)."""
+    from pcl_tpu_torch.core.cloud import make_cloud
+
+    def move(c):
+        return make_cloud(c.xyz.cpu().numpy(), attrs={"normal": c.attrs["normal"].cpu().numpy()},
+                          device=dev)
+    return dict(scene=move(front["scene"]), models={i: move(m) for i, m in front["models"].items()},
+                cor=front["cor"])
+
+
+def n_card_vs_cpu(inp_small, full_out, expect, card=None):
+    """The slice's functions on the card against the port's CPU run: path N's
+    chain at 80 x 60 on the CPU's front end with the same CPU-drawn samples,
+    and the groupers, trimmed ICP and the verifiers on the ``N_CPU_VOXELS``
+    scene voxels nearest the box with the box's correspondences among them.
+    Returns lines to print."""
+    from pcl_tpu_torch import recognition as rec
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.recognition import orr, verification
+
+    lines = []
+    cpu = torch.device("cpu")
+    card = torch.device("cuda") if card is None else card
+    N = N_SMALL
+    front = path_n_front(inp_small, N, cpu)
+    a, b = (path_n_chain(inp_small, N, d, gen_dev="cpu", front=_front_on(front, d))[0]
+            for d in (card, cpu))
+    same = all(np.array_equal(x, y) for i in (3, 5) for k in ("gc", "hough", "gc_sac", "hough_sac")
+               for x, y in zip(a["groups"][i][k][:2], b["groups"][i][k][:2]))
+    tgap = max(float(np.abs(a["groups"][i][k][2] - b["groups"][i][k][2]).max())
+               for i in (3, 5) for k in ("gc", "hough", "gc_sac", "hough_sac"))
+    expect(same and tgap <= 1e-5, f"(card vs CPU) grouping differs: members equal {same}, "
+                                  f"transforms by {tgap}")
+    hgap = float(np.abs(a["hyp_T"] - b["hyp_T"]).max())
+    hv_same = all(np.array_equal(a["hv"][k], b["hv"][k]) for k in a["hv"])
+    expect(hgap <= 1e-4 and hv_same, f"(card vs CPU) trimmed ICP by {hgap} m or the verifiers' "
+                                     f"decisions ({hv_same})")
+    ogap = float(np.abs(a["orr"][0] - b["orr"][0]).max())
+    expect(ogap <= 1e-3 and abs(a["orr"][1] - b["orr"][1]) <= 2.0 / len(a["models"][3][0])
+           and a["hash"][1] == b["hash"][1],
+           f"(card vs CPU) ObjRecRANSAC differs: pose by {ogap}, support {a['orr'][1]} against "
+           f"{b['orr'][1]}")
+    lm_same = [(d.y, d.x, d.score) for d in a["lm"]] == [(d.y, d.x, d.score) for d in b["lm"]]
+    expect(lm_same and np.array_equal(a["dmap"], b["dmap"])
+           and np.array_equal(a["eroded"], b["eroded"]), "(card vs CPU) LINEMOD or the maps differ")
+    gp_same = len(a["gp_clusters"]) == len(b["gp_clusters"]) and all(
+        np.array_equal(np.sort(x, 0), np.sort(y, 0)) for x, y in zip(a["gp_clusters"],
+                                                                     b["gp_clusters"]))
+    labels = ([r and r.label for r in a["gp_vfh"]], [r and r.label for r in b["gp_vfh"]])
+    expect(gp_same and labels[0] == labels[1], f"(card vs CPU) the global pipeline differs: "
+                                               f"clusters equal {gp_same}, labels {labels}")
+    ism_gap = float(np.linalg.norm(a["ism_peaks"][0][0] - b["ism_peaks"][0][0])) \
+        if a["ism_peaks"] and b["ism_peaks"] else math.inf
+    expect(ism_gap <= N["ism_sampling"] and a["faces"] == b["faces"],
+           f"(card vs CPU) ISM's peak moved {ism_gap} m or the forest's detections differ")
+    lines.append(f"80 x 60 chain: groupers equal {same} (transforms {tgap:.1e}), trimmed ICP "
+                 f"{hgap:.1e} m, verifiers equal {hv_same}, ObjRecRANSAC {ogap:.1e}, LINEMOD "
+                 f"equal {lm_same}, clusters equal {gp_same}, labels {labels[0]}, ISM peak "
+                 f"{ism_gap:.2e} m, detections equal {a['faces'] == b['faces']}")
+    # the full-width scene's voxels about the box
+    sx = full_out["scene_xyz"]
+    centre = to_camera(L_CENTERS[3], handheld(np.random.default_rng(G_SEED), 1)[0])
+    dist = np.linalg.norm(sx - centre, axis=1)
+    near = np.argsort(dist, kind="stable")[:N_CPU_VOXELS]
+    cor = full_out["groups"][3]["cor"]
+    inside = np.linalg.norm(cor["scene_pts"] - centre, axis=1) <= dist[near[-1]]
+    out = {}
+    for d in (card, cpu):
+        def t(x):
+            return torch.as_tensor(np.asarray(x), device=d)
+        mp, sp = t(cor["model_pts"][inside]), t(cor["scene_pts"][inside])
+        ok = torch.ones(len(mp), dtype=torch.bool, device=d)
+        gc = rec.geometric_consistency_grouping(mp, sp, ok, gc_size=N_FULL["cg_size"],
+                                                min_cluster_size=N_FULL["cg_thresh"])
+        hg = rec.hough3d_grouping(mp, sp, ok, t(cor["centroid"]), bin_size=N_FULL["hough_bin"],
+                                  threshold=N_FULL["hough_thresh"],
+                                  model_rf=t(cor["model_rf"][inside]),
+                                  scene_rf=t(cor["scene_rf"][inside]))
+        scene = make_cloud(sx[near], device=d)
+        box = make_cloud(full_out["models"][3][0], device=d)
+        # two iterations: longer runs part by the trimmed set's ties (as path H's (f))
+        T = orr.trimmed_icp(box, scene, init=t(full_out["orr"][0]),
+                            trim_fraction=N_FULL["tricp"]["trim_fraction"],
+                            max_iterations=2).transform
+        sub = box.xyz[:: max(1, len(box.xyz) // 512)]
+        Ts = t(full_out["hyp_T"].astype(np.float32))
+        okh = torch.ones(len(Ts), dtype=torch.bool, device=d)
+        hv = [fn(sub, Ts, okh, scene.xyz, scene.mask, **N_FULL["hv"]).cpu().numpy()
+              for fn in (verification.greedy_hypothesis_verification,
+                         verification.global_hypothesis_verification,
+                         verification.papazov_hypothesis_verification)]
+        out[d.type] = ([x.cpu().numpy() for x in gc], [x.cpu().numpy() for x in hg],
+                       T.cpu().numpy(), hv)
+    (ga, ha, Ta, va), (gb, hb, Tb, vb) = out[card.type], out["cpu"]
+    same = all(np.array_equal(x, y) for x, y in zip(ga[:2] + ha[:2], gb[:2] + hb[:2]))
+    tg = max(float(np.abs(ga[2] - gb[2]).max()), float(np.abs(ha[2] - hb[2]).max()))
+    icp_gap = float(np.abs(Ta - Tb).max())
+    hv_same = all(np.array_equal(x, y) for x, y in zip(va, vb))
+    expect(same and tg <= 1e-5 and icp_gap <= 1e-4 and hv_same,
+           f"(card vs CPU) on {N_CPU_VOXELS} voxels: groupers equal {same} ({tg}), trimmed ICP "
+           f"{icp_gap}, verifiers equal {hv_same}")
+    lines.append(f"{N_CPU_VOXELS} voxels about the box ({int(inside.sum())} correspondences): "
+                 f"groupers equal {same} (transforms {tg:.1e}), trimmed ICP (two iterations) "
+                 f"{icp_gap:.1e} m, "
+                 f"verifiers equal {hv_same}")
+    return lines
+
+
+def n_checks(m, lim, expect):
+    """Path N's checks against ``N_LIMITS`` (1.5 x the rehearsal); a check
+    the rehearsal did not meet is printed, not made (``lim`` holds None)."""
+    printed = []
+
+    def hold(cond, limit, what):
+        if limit is None:
+            printed.append(what)
+        else:
+            expect(cond, what)
+
+    for k, L in lim["groups"].items():
+        v = m[k][0]
+        hold(L is not None and v <= L, L, f"(a) {k}: the best instance lies {v:.5f} m from its "
+                                          f"object (limit {L}; on it: within {N_ON_OBJECT} m)")
+    hold(lim["orr"] is not None and m["orr"][0] <= lim["orr"], lim["orr"],
+         f"(c) ObjRecRANSAC's refined pose lies {m['orr'][0]:.5f} m from the box (limit "
+         f"{lim['orr']})")
+    names = list(m["hyp_err"])
+    for v, accept in m["hv"].items():
+        for name, want in lim["hv"][v].items():
+            a = accept[names.index(name)]
+            hold(a == want, want, f"(b) {v} verification {'accepts' if a else 'rejects'} "
+                                  f"{name}" + ("" if want is None else
+                                               f" (the rehearsal {'accepts' if want else 'rejects'})"))
+    hold(m["lm"][0] >= 0.5, lim["lm"], f"(d) LINEMOD's best window has IoU {m['lm'][0]:.3f} "
+                                       f"with the box in frame {N_FRAME_G}")
+    for key in ("gp_vfh", "gp_esf"):
+        owners = [row[0] for row in m.get(key, [])]
+        for obj in N_OBJECTS.values():
+            if obj not in owners:
+                hold(False, None, f"(e) {key}: no cluster is the {obj}'s (plane removal and "
+                                  f"clusters at the pipeline's settings)")
+        for obj, size, label, err in m.get(key, []):
+            if obj in N_OBJECTS.values():
+                hold(label == obj, lim["gp_labels"].get(f"{key} {obj}"),
+                     f"(e) {key} labels the {obj}'s cluster ({size} points) {label}")
+                L = lim["gp_err"].get(f"{key} {obj}")
+                hold(L is not None and err <= L, L, f"(e) {key}'s refined view of the {obj} lies "
+                                                     f"{err:.5f} m from it (limit {L})")
+    hold(lim["ism"] is not None and m["ism"][0] <= lim["ism"], lim["ism"],
+         f"(f) ISM's strongest peak lies {m['ism'][0]:.4f} m from the box's centre (limit "
+         f"{lim['ism']})")
+    hold(lim["face"] is not None and m["face"][0] <= lim["face"], lim["face"],
+         f"(g) the forest's best detection lies {m['face'][0]:.1f} px from the sphere "
+         f"(limit {lim['face']})")
+    return printed
+
+
+def phase16_path_n(segsum, nn1_mod, record_b1, record_b2):
+    """Path N: PCL's recognition tutorials on path L's room, frame 0 at VGA
+    and 1 cm voxels."""
+    from pcl_tpu_torch.search import bruteforce
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 16: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    dev = torch.device("cuda")
+    inp, isecs = timed(lambda: path_n_inputs(N_FULL))
+    print(f"phase 16: inputs in {isecs:.1f} s: frame 0 {int(inp['frame']['valid'].sum())} valid "
+          f"pixels, models " + ", ".join(f"{N_OBJECTS[i]} {len(m['xyz'])} pixels"
+                                          for i, m in inp["models"].items())
+          + f", frame {N_FRAME_G} {int(inp['frame_g']['valid'].sum())} valid pixels", flush=True)
+    small = path_n_inputs(N_SMALL)
+    _, wsecs = timed(lambda: path_n_chain(small, N_SMALL, dev))
+    print(f"phase 16: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    z = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), N_DRAWS))
+    draws = {"orr": [torch.from_numpy(z[k].astype(np.int64)) for k in ("i1", "i2", "mp1")]}
+    for k in ("gc", "hough"):
+        for name in ("box", "cylinder"):
+            key = f"sac {k} {name}"
+            draws[key] = [torch.from_numpy(z[f"{key} {j}"].astype(np.int64))
+                          if f"{key} {j}" in z else None for j in range(N_FULL["max_instances"])]
+    with kernel_calls(bruteforce, segsum) as calls:
+        (out, secs), total = timed(lambda: path_n_chain(
+            inp, N_FULL, dev, draws=draws, on_stage=lambda n: calls.__setitem__("stage", n)))
+    expect(len(out["scene_xyz"]) == int(z["n_scene"])
+           and len(out["models"][3][0]) == int(z["n_model"]),
+           f"the rehearsal's draws index {int(z['n_scene'])} scene and "
+           f"{int(z['n_model'])} box voxels, the card has {len(out['scene_xyz'])} and "
+           f"{len(out['models'][3][0])}")
+    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["N"] = b1
+    record_b2["launches_by_path"]["N"] = b2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = card_line()
+    print(f"phase 16: path N in {total:.1f} s on {len(out['scene_xyz'])} scene voxels, peak "
+          f"memory {peak:.2f} GiB, launches nn1 {b1}, segsum {b2} [{card}]", flush=True)
+    for name, v in secs.items():
+        print(f"phase 16: {name}: {v * 1e3:.1f} ms [{card}]", flush=True)
+    parts = {p: sum(v for k, v in secs.items() if k.startswith(p))
+             for p in ("(front)", "(a)", "(b)", "(c)", "(d)", "(e)", "(f)", "(g)")}
+    print("phase 16: by part " + ", ".join(f"{p} {v:.2f} s" for p, v in parts.items())
+          + f" [{card}]", flush=True)
+    expect(b2 == 1 + len(N_OBJECTS) and b1 >= 5,
+           f"path N launched B2 {b2} times (the scene's and the models' voxel grids: 4) and B1 "
+           f"{b1} times (the verifiers, trimmed ICP, ObjRecRANSAC, ICP, ESF: at least 5)")
+    expect(len(calls["nn1"]) == b1 and len(calls["segsum"]) == b2,
+           "the kept kernel calls do not match the launch counts")
+    m = path_n_metrics(inp, out, N_FULL)
+    print("phase 16: metrics " + json.dumps(m, default=float), flush=True)
+    print(f"phase 16: (e) clusters " + ", ".join(
+        f"{o} ({n} points): VFH {lv}, ESF {le}" for (o, n, lv, _), (_, _, le, _)
+        in zip(m["gp_vfh"], m["gp_esf"])), flush=True)
+    for what in n_checks(m, N_LIMITS, expect):
+        print(f"phase 16: printed, not checked (the reference does not meet it): {what}",
+              flush=True)
+    lines, csecs = timed(lambda: n_card_vs_cpu(small, out, expect))
+    print(f"phase 16: card against CPU ({csecs:.1f} s): " + "; ".join(lines), flush=True)
+    rows1, rows2 = hold_to_plain(calls, nn1_mod, segsum, expect, "phase 16:", N_PLAIN_ROWS, card,
+                                 time_once=True)
+    record_b1["path_n"] = rows1
+    record_b2["path_n"] = rows2
+    check(not failed, "path N: " + "; ".join(failed))
+    return {"total_s": total, "peak_gib": peak, "parts": parts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5378,13 +6138,15 @@ def main() -> int:
     lap("phase 14")
     out_m = phase15_path_m(segsum, nn1_mod, scans, golden, record, record_b2)
     lap("phase 15")
+    out_n = phase16_path_n(segsum, nn1_mod, record, record_b2)
+    lap("phase 16")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
         # H (the rest of registration), I (the sharded functions, one rank),
         # J (the filter front end), K (descriptors, keypoints, clusters),
         # L (surface reconstruction and segmentation), M (the octree, range
-        # images and NARF)
+        # images and NARF), N (recognition)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -5409,7 +6171,8 @@ def main() -> int:
           + "; path K ms per scan "
           + ", ".join(f"{k} {v[0] * 1e3:.1f}/{v[1] * 1e3:.1f}" for k, v in times_k.items())
           + f"; path L {out_l['total_s']:.1f} s, peak {out_l['peak_gib']:.2f} GiB"
-          + f"; path M {out_m['total_s']:.2f} s, peak {out_m['peak_gib']:.2f} GiB [{card}]",
+          + f"; path M {out_m['total_s']:.2f} s, peak {out_m['peak_gib']:.2f} GiB"
+          + f"; path N {out_n['total_s']:.1f} s, peak {out_n['peak_gib']:.2f} GiB [{card}]",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

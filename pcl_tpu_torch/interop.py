@@ -3,8 +3,9 @@
 Turns arrays that the JAX package produced, already converted to numpy by
 the caller (``np.asarray(jax_array)``), into the port's objects, so that a
 cloud, a cell table, a hash grid, an NDT grid, a TSDF volume, a KinFu
-tracker's state, a linear octree, an occupancy grid or a range image built
-there can be used here. This module reads only
+tracker's state, a linear octree, an occupancy grid, a range image, an
+implicit shape model, a global-descriptor database, a random forest or a
+LINEMOD template built there can be used here. This module reads only
 numpy arrays and plain values; it imports nothing of the JAX package.
 """
 
@@ -19,8 +20,12 @@ from pcl_tpu_torch.core.cloud import Cloud, _device
 from pcl_tpu_torch.core.range_image import RangeImage
 from pcl_tpu_torch.fusion.kinfu import KinfuState
 from pcl_tpu_torch.fusion.tsdf import TSDFVolume
+from pcl_tpu_torch.ml.trees import DecisionTree, RandomForest
 from pcl_tpu_torch.octree.containers import OccupancyGrid
 from pcl_tpu_torch.octree.linear import LinearOctree
+from pcl_tpu_torch.recognition.global_pipeline import GlobalModelDatabase
+from pcl_tpu_torch.recognition.ism import ISMModel
+from pcl_tpu_torch.recognition.linemod import LinemodTemplate
 from pcl_tpu_torch.registration.ndt import NDTGrid
 from pcl_tpu_torch.search.cell_list import CellTable
 from pcl_tpu_torch.search.hashgrid import HashGrid
@@ -240,3 +245,39 @@ def range_image_from_arrays(
         sensor_pose=torch.tensor(np.asarray(sensor_pose, np.float32), device=dev),
         planar=bool(planar),
     )
+
+
+def ism_model_from_arrays(statistical_weights, learned_weights, classes, sigmas,
+                          directions_to_center, clusters_centers, clusters) -> ISMModel:
+    """An implicit shape model trained elsewhere (host arrays, as the port
+    keeps them)."""
+    sw = np.asarray(statistical_weights, np.float32)
+    centers = np.asarray(clusters_centers, np.float32)
+    lw = np.asarray(learned_weights, np.float32)
+    return ISMModel(sw, lw, np.asarray(classes, np.int32), np.asarray(sigmas, np.float32),
+                    np.asarray(directions_to_center, np.float32), centers,
+                    [[int(m) for m in c] for c in clusters], int(sw.shape[0]), int(len(lw)),
+                    int(centers.shape[0]), int(centers.shape[1]))
+
+
+def global_database_from_arrays(descriptor: str, labels: Sequence[str], descs: np.ndarray,
+                                views: Sequence[np.ndarray],
+                                poses: Sequence[np.ndarray]) -> GlobalModelDatabase:
+    """A global-descriptor database trained elsewhere."""
+    return GlobalModelDatabase(descriptor=str(descriptor), labels=[str(v) for v in labels],
+                               descs=np.asarray(descs), views=[np.asarray(v) for v in views],
+                               poses=[np.asarray(p) for p in poses])
+
+
+def forest_from_arrays(trees: Sequence[tuple]) -> RandomForest:
+    """A random forest trained elsewhere, from each tree's ``(feature,
+    threshold, leaf_probs, depth)``."""
+    return RandomForest([DecisionTree(np.asarray(f), np.asarray(t), np.asarray(p), int(d))
+                         for f, t, p, d in trees])
+
+
+def linemod_template_from_arrays(offsets, bins, modality, height: int,
+                                 width: int) -> LinemodTemplate:
+    """A LINEMOD template extracted elsewhere."""
+    return LinemodTemplate(np.asarray(offsets, np.int32), np.asarray(bins, np.int32),
+                           np.asarray(modality, np.int32), int(height), int(width))

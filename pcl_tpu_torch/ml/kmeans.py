@@ -23,7 +23,9 @@ def kmeans_init_indices(mask: torch.Tensor, k: int,
     the valid rows."""
     w = mask.to(torch.float32)
     probs = w / torch.clamp(torch.sum(w), min=1.0)
-    return torch.multinomial(probs + 1e-30, k, replacement=True, generator=generator)
+    dev = mask.device if generator is None else generator.device
+    return torch.multinomial((probs + 1e-30).to(dev), k, replacement=True,
+                             generator=generator).to(mask.device)
 
 
 def kmeans_core(x: torch.Tensor, mask: torch.Tensor, k: int, init_idx: torch.Tensor,

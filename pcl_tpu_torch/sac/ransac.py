@@ -48,11 +48,14 @@ def generator(device, gen: Optional[torch.Generator] = None) -> torch.Generator:
 def categorical(gen: torch.Generator, weights: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     """``shape`` int64 indices drawn with replacement in proportion to
     ``weights [N]`` (uniform where every weight is 0): the stand-in for
-    ``jax.random.categorical`` over ``log(weights)``."""
+    ``jax.random.categorical`` over ``log(weights)``. The draw runs on the
+    generator's device, so a CPU generator gives the same indices for data
+    on either device."""
     w = weights.to(torch.float32)
     w = w + (torch.sum(w) == 0).to(torch.float32)
     n = math.prod(shape)
-    return torch.multinomial(w, n, replacement=True, generator=gen).reshape(shape)
+    idx = torch.multinomial(w.to(gen.device), n, replacement=True, generator=gen)
+    return idx.to(weights.device).reshape(shape)
 
 
 def _sample_indices(gen, n_hypotheses: int, sample_size: int, mask: torch.Tensor) -> torch.Tensor:

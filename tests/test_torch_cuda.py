@@ -1053,3 +1053,63 @@ def test_leaf_centroids_launch_b2_once_and_match_cpu(cuda):
                for f in ("keys", "order", "mask", "origin"))
     assert torch.equal(nc, np_) and lc == lp > 1000
     assert float((cc - cp).abs().max()) <= 1e-6 * float(np.abs(xyz).max())
+
+
+def _instances(seed, n=400, H=5):
+    """A model, a scene holding two moved copies of it, and hypotheses: the
+    two true poses, one 4 mm off, one far away and one moved 0.15 m."""
+    rng = np.random.default_rng(seed)
+    model = rng.uniform(-0.1, 0.1, size=(n, 3)).astype(np.float32)
+    Ts = np.tile(np.eye(4, dtype=np.float32), (H, 1, 1))
+    Ts[0, :3, 3] = [0.5, 0, 0]
+    Ts[1, :3, 3] = [-0.5, 0.2, 0]
+    Ts[2, :3, 3] = [0.504, 0, 0]
+    Ts[3, :3, 3] = [3.0, 3.0, 0]
+    Ts[4, :3, 3] = [-0.5, 0.35, 0]
+    scene = np.concatenate([model + Ts[0, :3, 3], model + Ts[1, :3, 3]])
+    scene += rng.normal(scale=0.002, size=scene.shape).astype(np.float32)
+    return model, Ts, scene.astype(np.float32)
+
+
+@pytest.mark.parametrize("name,launches", [("greedy_hypothesis_verification", 1),
+                                           ("global_hypothesis_verification", 6),
+                                           ("papazov_hypothesis_verification", 1)])
+def test_verifiers_launch_b1_and_match_cpu(cuda, name, launches):
+    """Each verifier's 1-NN is kernel B1 on the card (the global one: one
+    call per hypothesis and one of all moved model points); the accept masks
+    equal the CPU run's."""
+    from pcl_tpu_torch.recognition import verification
+
+    model, Ts, scene = _instances(3)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        args = [torch.from_numpy(a).to(dev) for a in (model, Ts, np.ones(5, bool), scene,
+                                                     np.ones(len(scene), bool))]
+        before = nn1_mod.nn1.launches
+        acc = getattr(verification, name)(*args, inlier_threshold=0.01)
+        out.append((acc.cpu(), nn1_mod.nn1.launches - before))
+    assert out[0][1] == launches and out[1][1] == 0
+    assert torch.equal(out[0][0], out[1][0])
+    assert out[0][0][0] and out[0][0][1] and not out[0][0][3]
+
+
+def test_hough_splat_repeats_bitwise_on_the_card(cuda):
+    """Hough 3-D's trilinear splat adds many votes into shared buckets with
+    ``index_put_(accumulate=True)``: two runs on the card are bitwise equal,
+    and the instances equal the CPU run's."""
+    from pcl_tpu_torch.recognition import grouping
+
+    rng = np.random.default_rng(4)
+    model = rng.normal(size=(3000, 3)).astype(np.float32)
+    scene = model + np.float32([1.0, -0.5, 2.0])
+    mp = np.concatenate([model, rng.normal(size=(1000, 3)).astype(np.float32)])
+    sp = np.concatenate([scene, rng.uniform(-4, 4, (1000, 3)).astype(np.float32)])
+    runs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        t = [torch.from_numpy(a).to(dev) for a in (mp, sp, np.ones(len(mp), bool),
+                                                  model.mean(0))]
+        r = grouping.hough3d_grouping(*t, bin_size=0.2, threshold=10.0, max_instances=3)
+        runs.append([x.cpu() for x in r])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    assert torch.equal(runs[0][0], runs[2][0]) and torch.equal(runs[0][1], runs[2][1])
+    assert bool(runs[0][0][0]) and float((runs[0][2] - runs[2][2]).abs().max()) <= 1e-5

@@ -24,6 +24,9 @@ from pcl_tpu_torch.registration import graph as tgraph
 from pcl_tpu_torch.registration import graph_optimizer as tgo
 from pcl_tpu_torch import segmentation as tseg
 from pcl_tpu_torch.octree.double_buffer import DoubleBufferedOctree
+from pcl_tpu_torch.recognition import global_pipeline as tgp
+from pcl_tpu_torch.recognition import ism as tism
+from pcl_tpu_torch.recognition import linemod as tlm
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pcl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -107,7 +110,15 @@ def test_new_modules_are_covered():
                  "octree/double_buffer.py", "octree/iterators.py", "features/narf.py",
                  "utils/logging.py", "utils/console.py", "utils/generate.py",
                  "tools/timed_trigger_test.py", "tools/voxel_grid_occlusion_estimation.py",
-                 "tools/obj_rec_ransac_orr_octree_zprojection.py", "tools/generate.py"):
+                 "tools/obj_rec_ransac_orr_octree_zprojection.py", "tools/generate.py",
+                 "image/__init__.py", "image/ops.py", "ml/trees.py", "recognition/__init__.py",
+                 "recognition/grouping.py", "recognition/verification.py", "recognition/orr.py",
+                 "recognition/linemod.py", "recognition/linemod_io.py", "recognition/ism.py",
+                 "recognition/face_detection.py", "recognition/global_pipeline.py",
+                 "tools/linemod_detection.py", "tools/train_linemod_template.py",
+                 "tools/match_linemod_template.py", "tools/obj_rec_ransac_accepted_hypotheses.py",
+                 "tools/obj_rec_ransac_hash_table.py", "tools/obj_rec_ransac_model_opps.py",
+                 "tools/obj_rec_ransac_result.py", "tools/obj_rec_ransac_scene_opps.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -145,15 +156,18 @@ def _jax_exports(package: str):
     return out
 
 
-# the JAX modules left for later (ROADMAP item 22b), whose names the port's
-# packages do not export yet
+# the JAX modules left for later (ROADMAP items 21b, 22a and 22b), whose names
+# the port's packages do not export yet
 LEFT_FOR_LATER = {
     "features": ("pcl_tpu.features.organized_edge",),
     "keypoints": ("pcl_tpu.keypoints.corners2d",),
+    "image": ("pcl_tpu.image.extractors",),
+    "ml": ("pcl_tpu.ml.svm", "pcl_tpu.ml.svm_prob", "pcl_tpu.ml.svm_io", "pcl_tpu.ml.densecrf",
+           "pcl_tpu.ml.permutohedral"),
 }
 
 
-@pytest.mark.parametrize("package", ["features", "keypoints"])
+@pytest.mark.parametrize("package", ["features", "keypoints", "image", "ml"])
 def test_features_and_keypoints_export_the_jax_names(package):
     """``__all__`` is the JAX package's names, in order, less those of the
     modules left for later, which are listed here."""
@@ -164,7 +178,14 @@ def test_features_and_keypoints_export_the_jax_names(package):
                      "EDGELABEL_OCCLUDING", "EDGELABEL_OCCLUDED", "EDGELABEL_HIGH_CURVATURE",
                      "EDGELABEL_RGB_CANNY"],
         "keypoints": ["agast_keypoints", "brisk_keypoints", "brisk_descriptor",
-                      "trajkovic_keypoints", "agast_score", "trajkovic_score"]}[package]
+                      "trajkovic_keypoints", "agast_score", "trajkovic_score"],
+        "image": ["extract_normal_image", "extract_rgb_image", "extract_label_image",
+                  "extract_z_image", "extract_curvature_image", "extract_intensity_image",
+                  "bearing_angle_image"],
+        "ml": ["PlattScaling", "platt_calibrate", "platt_probability", "svm_train_probability",
+               "svm_predict_probability", "svm_cross_validation", "SVMModel", "svm_train",
+               "svm_classify", "svm_train_dual", "svm_classify_dual", "load_libsvm_model",
+               "save_libsvm_model", "load_libsvm_probability", "DenseCRF"]}[package]
     port = importlib.import_module(f"pcl_tpu_torch.{package}")
     assert port.__all__ == [n for n, mod in names if mod not in LEFT_FOR_LATER[package]]
     assert all(hasattr(port, n) for n in port.__all__)
@@ -215,12 +236,27 @@ def test_surface_exports_the_jax_names():
     _exports_all("surface")
 
 
+def test_recognition_exports_the_jax_names():
+    """Every module of ``recognition/`` is ported: ``__all__`` is every name
+    ``pcl_tpu/recognition/__init__.py`` imports, in its order; the modules'
+    other public functions are there too."""
+    _exports_all("recognition")
+    from pcl_tpu_torch.recognition import face_detection, orr, verification
+    assert callable(verification.global_hypothesis_verification)
+    assert callable(verification.papazov_hypothesis_verification)
+    assert all(callable(f) for f in (face_detection.FaceDetector,
+                                     face_detection.train_face_detector,
+                                     face_detection.detect_faces, orr._orr_hypotheses,
+                                     orr._orr_support))
+
+
 def test_ml_exports_kmeans_as_a_sampler_and_a_core():
-    """``ml`` exports only ``kmeans`` until ROADMAP item 21; its draw is a
-    sampler beside a core that takes the drawn indices (C17)."""
+    """``ml`` exports ``kmeans`` first (the trees follow, the rest waits for
+    ROADMAP item 21b); its draw is a sampler beside a core that takes the
+    drawn indices (C17)."""
     ml = importlib.import_module("pcl_tpu_torch.ml")
     km = importlib.import_module("pcl_tpu_torch.ml.kmeans")
-    assert ml.__all__ == ["kmeans"] and ml.kmeans is km.kmeans
+    assert ml.__all__[0] == "kmeans" and ml.kmeans is km.kmeans
     assert callable(km.kmeans_init_indices) and callable(km.kmeans_core)
 
 
@@ -255,12 +291,18 @@ def test_scan_sees_forbidden_imports(tmp_path):
                                               np.ones(2)),
     lambda: interop.range_image_from_arrays(np.zeros((2, 2)), 0.1, np.ones(2), np.eye(4), False),
     lambda: DoubleBufferedOctree(resolution=0.1).set_cloud(np.zeros((4, 3)), np.ones(4, bool)),
+    lambda: tlm.build_modality_maps(np.zeros((4, 4, 3)), np.zeros((4, 4, 3)),
+                                    np.ones((4, 4), bool)),
+    lambda: tlm.detect_templates([np.zeros((4, 4, 8), bool)], []),
+    lambda: tism.cluster_init_indices(4, 2),
+    lambda: tgp.train_global_database({"a": np.ones((20, 3), np.float32)}),
 ], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays",
         "tsdf_volume_from_arrays", "make_volume", "build_edges_from_correspondences",
         "PoseGraph.optimize", "make_mesh", "initialize_multihost",
         "organized_connected_components", "organized_multi_plane_segmentation",
         "UnaryClassifier.train", "linear_octree_from_arrays", "range_image_from_arrays",
-        "DoubleBufferedOctree.set_cloud"])
+        "DoubleBufferedOctree.set_cloud", "build_modality_maps", "detect_templates",
+        "cluster_init_indices", "train_global_database"])
 def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
