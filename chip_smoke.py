@@ -167,7 +167,22 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    on the three models with FPFH, votes for the box; (g) a depth-patch forest
    trained on frame 0, run on frame 20; the checks at 1.5 x the JAX package's
    CPU rehearsal; the chain on the card against the CPU at 80 x 60 and on
-   2,048 voxels about the box; every B1 and B2 call held to its plain version.
+   2,048 voxels about the box; every B1 and B2 call held to its plain version;
+17. path O, PCL's people-detection, dense-CRF and tracking tutorials on a
+   30-frame VGA RGB-D sequence of a 6 x 7 m room with brick walls, posters,
+   path G's three objects as clutter and two people walking, seen by a fixed
+   Kinect 1.2 m above the floor: (a) a linear and an RBF SVM on HOG windows of
+   both figures and the empty room, Platt scaling, five-fold cross-validation
+   and the libsvm file's round trip; (b) the ground-based people detector on
+   every frame's 0.06 m voxels (B2), ground by RANSAC on frame 0, with the HOG
+   confidence, and HOG features of each detection; (c) the dense CRF on frame
+   0's 2 cm voxels (B2) from labels of which 20% are wrong, both filters, and
+   tools.crf_segmentation; (d) the KLD-adaptive and the plain particle filter
+   on person 1 over every frame's 2 cm voxels (B2; B1 once a step in each);
+   (e) pyramidal KLT of frame 0's 500 strongest AGAST corners over the
+   sequence against the rendered flow, BRISK and Trajkovic on frame 0; the
+   checks at 1.5 x the JAX package's CPU rehearsal; the chain on the card
+   against the CPU at 80 x 60; every B1 and B2 call held to its plain version.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
@@ -175,7 +190,8 @@ noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
 from seed 7, path E's two scans of path C's street from seed 5, path F's route
 from seed 8, path G's room and camera from seed 9, path L's frame noise and
 colours from seed 10, path N's model renders from seed 11 and its objects'
-surfaces from seed 12. Any failed check
+surfaces from seed 12, path O's sequence from seed 13 and its training windows from
+seed 14. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -4627,8 +4643,10 @@ def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card, time_on
     queries; B1 bitwise, B2 within 1e-6 of the largest sum) and timed beside
     its bound, its plain version and, for B2, ``torch.segment_reduce``.
     ``time_once`` times B1 once per shape (the first call of it; later calls
-    of that shape are held, not timed, and counted in its row). Returns the
-    rows of B1 and of B2 for the kernels' JSON line."""
+    of that shape are held, not timed, and counted in its row); with
+    ``time_once="stage"`` once per stage and query count, the row giving the
+    range of the targets' counts (``m_min``, ``m_max``). Returns the rows of
+    B1 and of B2 for the kernels' JSON line."""
     rows1 = []
     by_shape = {}
     for stage, t_, m_, q_ in calls["nn1"]:
@@ -4638,10 +4656,13 @@ def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card, time_on
         nd, dd = int((ik[:n] != ip).sum()), float((dk[:n] - dp).abs().max()) if n else 0.0
         expect(nd == 0 and dd == 0.0, f"B1 differs from its plain version at {stage} "
                                       f"{len(q_)} x {len(t_)}: {nd} indices, d2 by {dd}")
-        shape = (len(q_), len(t_))
+        shape = (stage, len(q_)) if time_once == "stage" else (len(q_), len(t_))
         if time_once and shape in by_shape:
-            by_shape[shape]["calls"] += 1
-            by_shape[shape]["max_abs_err"] = max(by_shape[shape]["max_abs_err"], dd)
+            row = by_shape[shape]
+            row["calls"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], dd)
+            if time_once == "stage":
+                row["m_min"], row["m_max"] = min(row["m_min"], len(t_)), max(row["m_max"], len(t_))
             continue
         ms = cuda_ms(lambda: nn1_mod.nn1(t_, m_, q_), reps=5)
         plain_ms = cuda_ms(lambda: nn1_mod.nn1_plain(t_, m_, q_[:n]), reps=1)
@@ -4649,6 +4670,8 @@ def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card, time_on
         row = {"case": stage, "q": len(q_), "m": len(t_), "ms": ms, "plain_ms": plain_ms,
                "plain_rows": n, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                "max_abs_err": dd, "calls": 1}
+        if time_once == "stage":
+            row["m_min"] = row["m_max"] = len(t_)
         rows1.append(row)
         by_shape[shape] = row
         print(f"{tag} nn1 at {stage} {len(q_)} x {len(t_)}: {ms:.3f} ms, bound "
@@ -4657,6 +4680,10 @@ def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card, time_on
     if time_once:
         print(f"{tag} nn1: {len(calls['nn1'])} calls held to the plain version, "
               f"{len(rows1)} shapes timed", flush=True)
+    if time_once == "stage":
+        for row in rows1:
+            print(f"{tag} nn1 at {row['case']}: {row['calls']} calls of {row['q']} x "
+                  f"{row['m_min']}-{row['m_max']}", flush=True)
     rows2 = []
     for stage, vals, seg_ in calls["segsum"]:
         k_ = segsum.segment_sum_sorted(vals, seg_)
@@ -6061,6 +6088,926 @@ def phase16_path_n(segsum, nn1_mod, record_b1, record_b2):
     return {"total_s": total, "peak_gib": peak, "parts": parts}
 
 
+# ---------------------------------------------------------------------------
+# path O: PCL's people-detection, dense-CRF and tracking tutorials on an
+# RGB-D sequence of a room with two people walking
+# ---------------------------------------------------------------------------
+
+O_SEED = 13                 # the sequence's range noise, dropped pixels and colour noise
+O_TRAIN_SEED = 14           # the classifier's training renders
+O_HZ = 30.0
+O_FLOOR_Y = 1.2             # m: the camera above the floor (world y points down)
+O_PITCH = 10.0              # deg the camera looks down
+O_FAR = 8.0                 # m: the sensor's range
+# the room, 6 m wide and 7 m deep, walls 3 m tall: planes (axis, position, bounds of
+# the other two axes in axis order, class)
+O_PLANES = ((1, O_FLOOR_Y, ((-3.0, 3.0), (0.0, 7.0)), 0),                  # floor
+            (2, 7.0, ((-3.0, 3.0), (O_FLOOR_Y - 3.0, O_FLOOR_Y)), 1),     # back wall
+            (0, -3.0, ((O_FLOOR_Y - 3.0, O_FLOOR_Y), (0.0, 7.0)), 1),     # left wall
+            (0, 3.0, ((O_FLOOR_Y - 3.0, O_FLOOR_Y), (0.0, 7.0)), 1))      # right wall
+# posters: (wall plane index, (a0, a1), (y0, y1)) with a the wall's horizontal axis
+O_POSTERS = ((1, (-2.2, -1.2), (-0.8, 0.4)), (1, (0.4, 1.4), (-0.9, 0.1)),
+             (3, (5.0, 6.0), (-0.7, 0.3)))
+# path G's box, sphere and cylinder as clutter on the floor, all under 1.3 m
+O_BOX = ((-2.3, O_FLOOR_Y - 0.3, 4.6), (-1.9, O_FLOOR_Y, 5.0))
+O_SPHERE = ((2.0, O_FLOOR_Y - 0.2, 5.2), 0.2)
+O_CYLINDER = ((-1.2, 5.8), 0.15, (O_FLOOR_Y - 0.5, O_FLOOR_Y))
+O_CLASSES = ("floor", "walls", "person 1", "person 2", "box", "sphere", "cylinder", "posters")
+O_COLOURS = {0: (0.55, 0.5, 0.45), 4: (0.85, 0.15, 0.1), 5: (0.15, 0.7, 0.2),
+             6: (0.15, 0.3, 0.85)}
+O_BRICKS = ((0.62, 0.3, 0.22), (0.8, 0.6, 0.45))
+O_SKIN = (0.85, 0.65, 0.5)
+# the people: height, start (x, z), velocity (m/s along x, z), shirt, trousers
+O_PEOPLE = (dict(height=1.75, start=(-1.5, 3.0), velocity=(1.0, 0.0),
+                 shirt=(0.7, 0.15, 0.15), trousers=(0.15, 0.2, 0.45)),
+            dict(height=1.62, start=(0.9, 2.5),
+                 velocity=(0.7 / math.sqrt(5.0), 1.4 / math.sqrt(5.0)),
+                 shirt=(0.2, 0.55, 0.25), trousers=(0.25, 0.25, 0.3)))
+O_LIGHT = np.array([0.3, -1.0, -0.5]) / np.linalg.norm([0.3, -1.0, -0.5])
+O_FULL = dict(
+    shape=(480, 640), intr=(525.0, 525.0, 319.5, 239.5), frames=30,
+    # (a): both figures at 12 views and 2-5 m, four negatives for each positive; the step
+    # 1e-3, not svm_train's 0.02, which diverges on HOG features (ROADMAP C83)
+    views=12, neg_per_pos=4, svm=dict(C=1.0, iterations=1000, lr=1e-3), rbf_gamma=1.0 / 3024,
+    folds=5,
+    # (b): PCL's ground_based_rgbd_people_detector defaults
+    det_leaf=0.06, det=dict(min_height=1.3, max_height=2.3, cluster_tolerance=0.2,
+                            min_points=30, min_confidence=-1.5),
+    # (c): crf_segmentation's flow on 2 cm voxels
+    crf_leaf=0.02, crf=dict(confidence=0.8, sxyz=0.05, srgb=0.1, iterations=10, flip=0.2,
+                            bilateral_bins=12),
+    # (d): PCL's tracking_sample.cpp: 1,000 particles at most, 600 at the start,
+    # epsilon 0.2, delta 0.99, bin 0.1, step noise the square roots of its covariances;
+    # the reference cut out of frame 0 off the ground within 0.4 m of the detection, the
+    # scene each frame's whole 2 cm voxel cloud (openni_tracking.cpp tracks on the whole
+    # pass-through cloud, z 0-10 m, which holds the whole room)
+    track_leaf=0.02, kld=dict(max=1000, init=600, epsilon=0.2, z_delta=2.326, bin_size=0.1),
+    pf=600, step_noise=(0.015, 0.015, 0.015, 0.095, 0.095, 0.095), ref_radius=0.4,
+    # (e)
+    agast=dict(threshold=10.0, keep=500), klt=dict(levels=3, window_radius=4, iterations=10))
+# 80 x 60 and two frames for the CPU tests (tests/test_torch_path_o.py) and the card
+# against the CPU: lengths grown with the pixels, particle counts and the bilateral grid
+# (6^6 cells, not 12^6) cut
+O_SMALL = dict(
+    O_FULL, shape=(60, 80), intr=(525.0 / 8, 525.0 / 8, (319.5 + 0.5) / 8 - 0.5,
+                                  (239.5 + 0.5) / 8 - 0.5),
+    frames=2, views=2, det_leaf=0.08, det=dict(O_FULL["det"], min_points=10),
+    crf_leaf=0.08, crf=dict(O_FULL["crf"], iterations=2, bilateral_bins=6), track_leaf=0.08,
+    kld=dict(O_FULL["kld"], max=96, init=64), pf=64, agast=dict(threshold=10.0, keep=60),
+    klt=dict(levels=2, window_radius=3, iterations=5))
+
+
+def _o_rotation() -> np.ndarray:
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_euler("x", -O_PITCH, degrees=True).as_matrix()
+
+
+def o_person_at(k: int, t: float):
+    """Person ``k``'s ground position (x, z) at time ``t``."""
+    p = O_PEOPLE[k]
+    return (p["start"][0] + p["velocity"][0] * t, p["start"][1] + p["velocity"][1] * t)
+
+
+def o_person_prims(h: float, x: float, z: float, heading, shirt, trousers, pid: int):
+    """A person of height ``h`` standing at ``(x, z)`` facing ``heading``: two
+    legs (r 0.07 m), a torso (r 0.17 m), two arms, a neck and a head sphere
+    (r 0.11 m). Vertical cylinders are ``("vcyl", x, z, r, y_top, y_bottom,
+    cap, colour, pid)``; the sphere ``("sphere", centre, r, colour, pid)``."""
+    f = O_FLOOR_Y
+    hx, hz = heading
+    lx, lz = -hz, hx                    # the shoulders' direction
+    hip, chest = f - 0.47 * h, f - 0.82 * h
+    out = []
+    for s in (-1, 1):
+        out.append(("vcyl", x + s * 0.09 * lx, z + s * 0.09 * lz, 0.07, hip, f, False,
+                    trousers, pid))
+        out.append(("vcyl", x + s * 0.23 * lx, z + s * 0.23 * lz, 0.05, f - 0.80 * h,
+                    f - 0.42 * h, True, shirt, pid))
+    out.append(("vcyl", x, z, 0.17, chest, hip, True, shirt, pid))
+    out.append(("vcyl", x, z, 0.05, f - h + 0.2, chest, False, O_SKIN, pid))
+    out.append(("sphere", np.array([x, f - h + 0.11, z]), 0.11, O_SKIN, pid))
+    return out
+
+
+def o_prims(t: float, people=True):
+    """Path O's scene at time ``t``: the clutter and, with ``people``, both
+    people at their places."""
+    prims = [("box", np.array(O_BOX[0]), np.array(O_BOX[1]), O_COLOURS[4], 4),
+             ("sphere", np.array(O_SPHERE[0]), O_SPHERE[1], O_COLOURS[5], 5),
+             ("vcyl", O_CYLINDER[0][0], O_CYLINDER[0][1], O_CYLINDER[1], O_CYLINDER[2][0],
+              O_CYLINDER[2][1], True, O_COLOURS[6], 6)]
+    if people:
+        for k, p in enumerate(O_PEOPLE):
+            x, z = o_person_at(k, t)
+            v = np.array(p["velocity"])
+            prims += o_person_prims(p["height"], x, z, v / np.linalg.norm(v), p["shirt"],
+                                    p["trousers"], 2 + k)
+    return prims
+
+
+def o_cast(o: np.ndarray, d: np.ndarray, prims):
+    """Nearest hit of rays ``o + t d`` with the room and ``prims``: ``(t,
+    unit world normal, hit index)``; index ``-1 - i`` for the room's plane
+    ``i``, ``j`` for ``prims[j]``, and ``t`` inf where nothing is hit."""
+    shape = d.shape[:-1]
+    best = np.full(shape, np.inf)
+    nrm = np.zeros(shape + (3,))
+    hit = np.full(shape, -1000, np.int64)
+    safe = np.where(np.abs(d) > 1e-12, d, 1e-12)
+
+    def take(t, n, idx):
+        nonlocal best
+        better = (t > 1e-6) & (t < best)
+        best = np.where(better, t, best)
+        nrm[better] = np.broadcast_to(n, shape + (3,))[better]
+        hit[better] = idx
+
+    for i, (axis, at, bounds, _) in enumerate(O_PLANES):
+        t = (at - o[axis]) / safe[..., axis]
+        p = o + t[..., None] * d
+        inside = np.ones(shape, bool)
+        for a, (lo, hi) in zip([a for a in range(3) if a != axis], bounds):
+            inside &= (p[..., a] >= lo) & (p[..., a] <= hi)
+        n = np.zeros(3)
+        n[axis] = -np.sign(at - o[axis])
+        take(np.where(inside, t, np.inf), n, -1 - i)
+    for j, pr in enumerate(prims):
+        if pr[0] == "box":
+            lo, hi = pr[1], pr[2]
+            t0, t1 = (lo - o) / safe, (hi - o) / safe
+            tn, tf = np.minimum(t0, t1), np.maximum(t0, t1)
+            t_in = tn.max(-1)
+            n = -np.sign(safe) * np.eye(3)[np.argmax(tn, -1)]
+            take(np.where(t_in < tf.min(-1), t_in, np.inf), n, j)
+        elif pr[0] == "sphere":
+            c, r = pr[1], pr[2]
+            oc = o - c
+            b = np.sum(d * oc, -1)
+            dd = np.sum(d * d, -1)
+            disc = b * b - dd * (oc @ oc - r * r)
+            t = (-b - np.sqrt(np.maximum(disc, 0))) / dd
+            take(np.where(disc > 0, t, np.inf), (o + t[..., None] * d - c) / r, j)
+        else:
+            _, cx, cz, r, y0, y1, cap = pr[:7]
+            a = d[..., 0] ** 2 + d[..., 2] ** 2
+            bb = d[..., 0] * (o[0] - cx) + d[..., 2] * (o[2] - cz)
+            cc = (o[0] - cx) ** 2 + (o[2] - cz) ** 2 - r * r
+            disc = bb * bb - a * cc
+            t = (-bb - np.sqrt(np.maximum(disc, 0))) / np.maximum(a, 1e-12)
+            p = o + t[..., None] * d
+            side = (disc > 0) & (p[..., 1] >= y0) & (p[..., 1] <= y1)
+            n = np.stack([(p[..., 0] - cx) / r, np.zeros(shape), (p[..., 2] - cz) / r], -1)
+            take(np.where(side, t, np.inf), n, j)
+            if cap:
+                t = (y0 - o[1]) / safe[..., 1]
+                p = o + t[..., None] * d
+                on = (p[..., 0] - cx) ** 2 + (p[..., 2] - cz) ** 2 <= r * r
+                take(np.where(on, t, np.inf), np.array([0.0, -1.0, 0.0]), j)
+    return best, nrm, hit
+
+
+def _o_hash(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * 7919 + b * 104729 + (a * b) % 13) % 5
+
+
+def o_shade(p: np.ndarray, n: np.ndarray, hit: np.ndarray, prims):
+    """``(rgb [..., 3] in [0, 1], class [...])`` of world hits: the floor's
+    tiles, the walls' bricks of two colours and the posters' coloured
+    blocks, the objects' and people's colours, lit by ``O_LIGHT``."""
+    rgb = np.zeros(hit.shape + (3,))
+    cls = np.full(hit.shape, -1, np.int64)
+    floor = hit == -1
+    tile = (np.floor(p[..., 0] / 0.5) + np.floor(p[..., 2] / 0.5)) % 2
+    rgb[floor] = (np.array(O_COLOURS[0]) * np.where(tile, 0.93, 1.0)[..., None])[floor]
+    cls[floor] = 0
+    for i in (1, 2, 3):
+        on = hit == -1 - i
+        a = p[..., 0] if O_PLANES[i][0] == 2 else p[..., 2]
+        row = np.floor((O_FLOOR_Y - p[..., 1]) / 0.075).astype(np.int64)
+        col = np.floor((a + 0.125 * (row % 2)) / 0.25).astype(np.int64)
+        which = (_o_hash(row, col) == 0)[..., None]
+        rgb[on] = np.where(which, O_BRICKS[1], O_BRICKS[0])[on]
+        cls[on] = 1
+        for wall, (a0, a1), (y0, y1) in O_POSTERS:
+            if wall != i:
+                continue
+            inside = on & (a >= a0) & (a <= a1) & (p[..., 1] >= y0) & (p[..., 1] <= y1)
+            bi = np.floor((a - a0) / (a1 - a0) * 3).astype(np.int64)
+            bj = np.floor((p[..., 1] - y0) / (y1 - y0) * 4).astype(np.int64)
+            palette = np.array([(0.95, 0.9, 0.2), (0.1, 0.1, 0.12), (0.2, 0.6, 0.9),
+                                (0.9, 0.3, 0.6), (0.95, 0.95, 0.95)])
+            rgb[inside] = palette[_o_hash(bi + 3 * wall, bj)][inside]
+            cls[inside] = 7
+    for j, pr in enumerate(prims):
+        on = hit == j
+        rgb[on] = pr[-2]
+        cls[on] = pr[-1]
+    shade = 0.6 + 0.4 * np.abs(n @ O_LIGHT)
+    return np.clip(rgb * shade[..., None], 0, 1), cls
+
+
+def o_render(t: float, intr, u: np.ndarray, v: np.ndarray, rng=None, people=True):
+    """The camera's view at pixels ``(u, v)`` (any shape) at time ``t``:
+    ``depth`` (range noise 1.5 mm x z^2 and 0.5% of the pixels dropped when
+    ``rng`` is given; 0 where invalid), ``rgb`` (colour noise 0.03; the
+    colour camera sees every surface, the depth's dropped pixels too), the
+    true ``class`` of each pixel's surface (``O_CLASSES``; -1 where nothing
+    is hit), the clean camera-frame points ``xyz`` and ``valid`` depth."""
+    R = _o_rotation()
+    d_cam = np.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy, np.ones(u.shape)], -1)
+    prims = o_prims(t, people)
+    tt, n, hit = o_cast(np.zeros(3), d_cam @ R.T, prims)
+    seen = np.isfinite(tt)
+    rgb, cls = o_shade((d_cam @ R.T) * np.where(seen, tt, 0)[..., None], n,
+                       np.where(seen, hit, -1000), prims)
+    ok = seen & (tt < O_FAR)
+    depth = np.where(ok, tt, 0.0)
+    xyz = d_cam * depth[..., None]
+    if rng is not None:
+        depth = depth + rng.normal(size=depth.shape) * 0.0015 * depth ** 2
+        ok &= rng.random(depth.shape) >= 0.005
+        rgb = np.clip(rgb + 0.03 * rng.normal(size=rgb.shape), 0, 1)
+    return dict(depth=np.where(ok, depth, 0.0).astype(np.float32),
+                rgb=np.where(seen[..., None], rgb, 0).astype(np.float32),
+                cls=np.where(seen, cls, -1), xyz=xyz, valid=ok)
+
+
+def o_camera_velocity(k: int) -> np.ndarray:
+    """Person ``k``'s velocity in the camera frame (m/s)."""
+    vx, vz = O_PEOPLE[k]["velocity"]
+    return _o_rotation().T @ np.array([vx, 0.0, vz])
+
+
+def o_project(p: np.ndarray, intr) -> np.ndarray:
+    """Camera-frame points [..., 3] to pixels (u, v)."""
+    return np.stack([p[..., 0] / p[..., 2] * intr.fx + intr.cx,
+                     p[..., 1] / p[..., 2] * intr.fy + intr.cy], -1)
+
+
+def o_in_view(k: int, t: float, O) -> bool:
+    """Whether person ``k``'s bounding cylinder (r 0.3 m, feet to head)
+    projects wholly inside the image at time ``t``."""
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    intr = Intrinsics(*O["intr"])
+    H, W = O["shape"]
+    x, z = o_person_at(k, t)
+    h = O_PEOPLE[k]["height"]
+    R = _o_rotation()
+    pts = np.array([[x + dx, y, z + dz] for dx in (-0.3, 0.3) for dz in (-0.3, 0.3)
+                    for y in (O_FLOOR_Y, O_FLOOR_Y - h)]) @ R
+    uv = o_project(pts, intr)
+    return bool((uv[:, 0] >= 0).all() and (uv[:, 0] < W).all() and (uv[:, 1] >= 0).all()
+                and (uv[:, 1] < H).all())
+
+
+def o_window_rays(xc: float, yc: float, pixel_height: float, H: int, W: int):
+    """The pixel coordinates that ``PersonClassifier.evaluate`` samples for a
+    window centred at ``(xc, yc)``: the ``pixel_height / 0.75`` tall, half as
+    wide box at the resize's points (dst / scale), and which fall inside
+    the image (the classifier pads with black)."""
+    height = int(np.floor(pixel_height / 0.75 + 0.5))
+    width = int(np.floor(pixel_height * 64 / (0.75 * 128) + 0.5))
+    xmin = int(np.floor(xc - width / 2 + 0.5))
+    ymin = int(np.floor(yc - height / 2 + 0.5))
+    v = ymin + np.arange(128) / (128 / height)
+    u = xmin + np.arange(64) / (64 / width)
+    uu, vv = np.meshgrid(u, v)
+    return uu, vv, (uu >= 0) & (uu < W) & (vv >= 0) & (vv < H)
+
+
+def o_training_windows(O):
+    """(a)'s windows, 128 x 64 RGB each: both figures at ``O["views"]``
+    headings, each at a depth drawn from 2-5 m and a place in view, in the
+    empty room (positives), and ``O["neg_per_pos"]`` times as many windows
+    of the room and its clutter at drawn places and sizes (negatives).
+    Seed ``O_TRAIN_SEED``."""
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    rng = np.random.default_rng(O_TRAIN_SEED)
+    intr = Intrinsics(*O["intr"])
+    H, W = O["shape"]
+    R = _o_rotation()
+    pos, neg = [], []
+    for k, p in enumerate(O_PEOPLE):
+        for view in range(O["views"]):
+            yaw = 2 * np.pi * view / O["views"]
+            z = rng.uniform(2.0, 5.0)
+            x = rng.uniform(-0.3, 0.3) * z
+            h = p["height"]
+            prims = o_person_prims(h, x, z, (np.cos(yaw), np.sin(yaw)), p["shirt"],
+                                   p["trousers"], 2 + k)
+            top, bottom = (np.array([x, y, z]) @ R for y in (O_FLOOR_Y - h, O_FLOOR_Y))
+            (ut, vt), (ub, vb) = o_project(top, intr), o_project(bottom, intr)
+            centre = o_project(np.array([x, O_FLOOR_Y - h / 2, z]) @ R, intr)
+            pos.append(_o_window(centre[0], centre[1], vb - vt, H, W, intr, prims, rng))
+    n_neg = O["neg_per_pos"] * len(pos)
+    for _ in range(n_neg):
+        ph = rng.uniform(0.2, 0.8) * H
+        pos_xy = (rng.uniform(0.1, 0.9) * W, rng.uniform(0.3, 0.7) * H)
+        neg.append(_o_window(pos_xy[0], pos_xy[1], ph, H, W, intr, o_prims(0.0, False), rng))
+    return np.stack(pos), np.stack(neg)
+
+
+def _o_window(xc, yc, pixel_height, H, W, intr, prims, rng):
+    uu, vv, inside = o_window_rays(xc, yc, pixel_height, H, W)
+    R = _o_rotation()
+    d_cam = np.stack([(uu - intr.cx) / intr.fx, (vv - intr.cy) / intr.fy, np.ones(uu.shape)], -1)
+    t, n, hit = o_cast(np.zeros(3), d_cam @ R.T, prims)
+    ok = np.isfinite(t) & (t < O_FAR) & inside
+    rgb, _ = o_shade((d_cam @ R.T) * np.where(ok, t, 0)[..., None], n, np.where(ok, hit, -1000),
+                     prims)
+    rgb = np.clip(rgb + 0.03 * rng.normal(size=rgb.shape), 0, 1)
+    return np.where(inside[..., None], rgb, 0).astype(np.float32)
+
+
+def path_o_inputs(O):
+    """Path O's host inputs: every frame (depth, RGB, grey, true classes,
+    camera-frame points), the true flow from each frame to the next, each
+    person's true visible centroid and whether it is wholly in view, and
+    (a)'s training windows."""
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    intr = Intrinsics(*O["intr"])
+    H, W = O["shape"]
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    rng = np.random.default_rng(O_SEED)
+    frames = []
+    for f in range(O["frames"]):
+        t = f / O_HZ
+        r = o_render(t, intr, u, v, rng)
+        xyz = np.stack([(u - intr.cx) / intr.fx * r["depth"], (v - intr.cy) / intr.fy * r["depth"],
+                        r["depth"]], -1).astype(np.float32)
+        grey = np.round(255.0 * (r["rgb"] @ np.array([0.299, 0.587, 0.114]))).astype(np.float32)
+        flow = np.zeros((H, W, 2), np.float32)
+        centroids, in_view = [], []
+        for k in range(len(O_PEOPLE)):
+            on = r["cls"] == 2 + k
+            moved = r["xyz"][on] + o_camera_velocity(k) / O_HZ
+            flow[on] = o_project(moved, intr) - np.stack([u[on], v[on]], -1)
+            seen = on & r["valid"]
+            centroids.append(xyz[seen].mean(0) if seen.any() else np.full(3, np.nan))
+            in_view.append(o_in_view(k, t, O))
+        frames.append(dict(xyz=xyz, valid=r["depth"] > 0, rgb=r["rgb"], grey=grey, cls=r["cls"],
+                           flow=flow, centroids=np.array(centroids), in_view=in_view))
+    pos, neg = o_training_windows(O)
+    return dict(frames=frames, pos=pos, neg=neg, intr=intr)
+
+
+def o_frame_cloud(fr, dev, onehot: bool = False):
+    """A frame's valid pixels as a cloud with RGB (and the true classes one
+    hot, for the CRF's truth)."""
+    from pcl_tpu_torch.core.cloud import make_cloud
+
+    ok = fr["valid"].reshape(-1)
+    attrs = {"rgb": fr["rgb"].reshape(-1, 3)[ok]}
+    if onehot:
+        attrs["onehot"] = np.eye(len(O_CLASSES), dtype=np.float32)[fr["cls"].reshape(-1)[ok]]
+    return make_cloud(fr["xyz"].reshape(-1, 3)[ok], attrs=attrs, device=dev)
+
+
+def o_reference_keep(xyz: np.ndarray, c0: np.ndarray, coeffs: np.ndarray, radius: float,
+                     top: float = np.inf) -> np.ndarray:
+    """Host (float64) mask of the points off the ground (more than 5 cm above
+    the plane ``coeffs``, below ``top``) and within ``radius`` of ``c0`` in
+    the ground plane: the tracker's reference, cut out of frame 0 as PCL's
+    tracking tutorial cuts it (the plane removed once, the cluster about the
+    detection)."""
+    n, d0 = coeffs[:3], coeffs[3]
+    x = np.asarray(xyz, np.float64)
+    rel = x - c0
+    hgt = x @ n + d0
+    return ((np.linalg.norm(rel - np.outer(rel @ n, n), axis=1) < radius) & (hgt > 0.05)
+            & (hgt < top))
+
+
+def o_hog_window(grey: np.ndarray, cand, n: np.ndarray, d0: float, K: np.ndarray) -> np.ndarray:
+    """A detection's window of the grey image (the classifier's geometry),
+    128 x 64."""
+    from pcl_tpu_torch.people.classifier import _resize_rgb
+
+    c = np.asarray(cand.centroid, np.float64)
+    h_c = float(c @ n + d0)
+    top, bottom = c + (cand.height - h_c) * n, c - h_c * n
+    pt, pb, pc = (K @ q for q in (top, bottom, c))
+    pt, pb, pc = pt / pt[2], pb / pb[2], pc / pc[2]
+    ph = pb[1] - pt[1]
+    height = int(np.floor(ph / 0.75 + 0.5))
+    width = int(np.floor(ph * 64 / (0.75 * 128) + 0.5))
+    xmin, ymin = int(np.floor(pc[0] - width / 2 + 0.5)), int(np.floor(pc[1] - height / 2 + 0.5))
+    H, W = grey.shape
+    box = np.zeros((max(height, 1), max(width, 1), 1), np.float32)
+    y0, y1, x0, x1 = max(ymin, 0), min(ymin + height, H), max(xmin, 0), min(xmin + width, W)
+    if y1 > y0 and x1 > x0:
+        box[y0 - ymin:y1 - ymin, x0 - xmin:x1 - xmin, 0] = grey[y0:y1, x0:x1]
+    return _resize_rgb(box, 64, 128)[..., 0].astype(np.float32)
+
+
+def _o_svm_parts(x, y, O, dev, run):
+    """(a) on the port: the linear and RBF trainers, Platt scaling, the
+    cross-validation and the model file's round trip."""
+    from pcl_tpu_torch import ml
+
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    lin = run("(a) svm_train (linear)", lambda: ml.svm_train(xt, yt, kernel="linear",
+                                                             **O["svm"]))
+    rbf = run("(a) svm_train_dual (rbf)", lambda: ml.svm_train_dual(
+        xt, yt, kernel="rbf", gamma=O["rbf_gamma"], C=O["svm"]["C"]))
+    kw = dict(n_folds=O["folds"], seed=0, train_fn=ml.svm_train, classify_fn=ml.svm_classify,
+              device=dev, kernel="linear", **O["svm"])
+    _, platt = run("(a) svm_train_probability", lambda: ml.svm_train_probability(x, y, **kw))
+    cv = run("(a) svm_cross_validation", lambda: ml.svm_cross_validation(x, y, **kw))
+    return lin, rbf, platt, cv
+
+
+def _o_file_round_trip(model, platt, dev):
+    """The linear model and its sigmoid written as a libsvm file, read back,
+    written again and read again: ``(second and third files equal, reloaded
+    arrays equal, probability equal)``."""
+    from pcl_tpu_torch import ml
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, f"m{i}.model") for i in range(3)]
+        ml.save_libsvm_model(paths[0], model, platt)
+        first = ml.load_libsvm_model(paths[0], device=dev)
+        ml.save_libsvm_model(paths[1], first, ml.load_libsvm_probability(paths[0]))
+        second = ml.load_libsvm_model(paths[1], device=dev)
+        ml.save_libsvm_model(paths[2], second, ml.load_libsvm_probability(paths[1]))
+        with open(paths[1], "rb") as a, open(paths[2], "rb") as b:
+            same_file = a.read() == b.read()
+        same_arrays = all(torch.equal(getattr(first, k), getattr(second, k))
+                          for k in ("w", "b", "support", "gamma", "mean", "scale"))
+        same_prob = tuple(ml.load_libsvm_probability(paths[2])) == tuple(platt)
+    return same_file, same_arrays, same_prob
+
+
+def path_o_chain(inp, O, dev, gen_dev=None, draws=None, on_stage=None):
+    """Path O's main path on the port, on ``dev``: (a) the person classifier
+    trained on HOG windows, (b) people detection in every frame (0.06 m
+    voxels, B2), (c) the dense CRF on frame 0's 2 cm voxels (B2) and the CLI,
+    (d) both trackers on every frame's 2 cm voxels (B2; B1 once a step in
+    each), (e) KLT over the sequence and the 2-D corners. Draws come from
+    generators seeded ``O_SEED`` on ``gen_dev`` (default ``dev``) or from
+    ``draws`` (the JAX package's: ``ground`` (idx, sub), ``kld`` and ``pf``
+    lists of step draws). Returns ``(out, seconds)``."""
+    from pcl_tpu_torch import filters, ml
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.keypoints import corners2d
+    from pcl_tpu_torch.people import GroundBasedPeopleDetector, classifier, hog
+    from pcl_tpu_torch.tools import crf_segmentation
+    from pcl_tpu_torch.tracking import kld, particle_filter as pf, pyramidal_klt
+
+    dev = torch.device(dev)
+    draws = draws or {}
+    gen_dev = torch.device(dev if gen_dev is None else gen_dev)
+    out, secs = {}, {}
+
+    def run(name, fn):
+        if on_stage is not None:
+            on_stage(name)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return r
+
+    def gen():
+        g = torch.Generator(device=gen_dev)
+        g.manual_seed(O_SEED)
+        return g
+
+    frames = inp["frames"]
+    intr = inp["intr"]
+    K = np.array([[intr.fx, 0, intr.cx], [0, intr.fy, intr.cy], [0, 0, 1.0]])
+    # (a) the person classifier
+    wins = np.concatenate([inp["pos"], inp["neg"]])
+    x = run("(a) dollar_hog", lambda: np.stack([classifier.dollar_hog(w) for w in wins]))
+    y = np.concatenate([np.ones(len(inp["pos"])), -np.ones(len(inp["neg"]))]).astype(np.float32)
+    lin, rbf, platt, cv = _o_svm_parts(x, y, O, dev, run)
+    xt = torch.as_tensor(x, device=dev)
+    out["svm"] = dict(cv=cv, platt=tuple(platt),
+                      lin_train=float(np.mean(np.sign(ml.svm_classify(lin, xt).cpu().numpy())
+                                              == y)),
+                      rbf_train=float(np.mean(np.sign(ml.svm_classify_dual(rbf, xt).cpu().numpy())
+                                              == y)),
+                      lin_w=lin.w.cpu().numpy())
+    out["files"] = run("(a) libsvm file round trip", lambda: _o_file_round_trip(lin, platt, dev))
+    w_eff = (lin.w * lin.scale).cpu().numpy().astype(np.float32)
+    clf = classifier.PersonClassifier({"window_height": 128, "window_width": 64,
+                                       "b": float(np.dot(w_eff.astype(np.float64),
+                                                         lin.mean.cpu().numpy()) - float(lin.b)),
+                                       "weights": w_eff})
+    # (b) people detection in every frame
+    det = GroundBasedPeopleDetector(intrinsics=K, classifier=clf, **O["det"])
+    dets, hogs = [], []
+    coeffs = None
+    for f, fr in enumerate(frames):
+        vox = run("(b) voxel grid 0.06 m", lambda: live_rows(
+            filters.voxel_downsample(o_frame_cloud(fr, dev), O["det_leaf"])))
+        if f == 0:
+            samples = draws.get("ground") or det.draw_ground_samples(vox, gen())
+            found = run("(b) detect", lambda: det.detect(vox, samples=samples,
+                                                         rgb_image=fr["rgb"]))
+            coeffs = det.ground_coeffs = det.last_ground
+        else:
+            found = run("(b) detect", lambda: det.detect(vox, rgb_image=fr["rgb"]))
+        dets.append(found)
+        hogs.append(run("(b) hog_features", lambda: [hog.hog_features(torch.as_tensor(
+            o_hog_window(fr["grey"], c_, coeffs[:3], coeffs[3], K), device=dev)).cpu().numpy()
+            for c_ in found]))
+    out["dets"] = [[(np.asarray(c_.centroid), c_.height, c_.n_points, c_.score) for c_ in d]
+                   for d in dets]
+    out["ground"] = coeffs
+    out["hogs"] = hogs
+    # (c) the dense CRF on frame 0's 2 cm voxels
+    vox2 = run("(c) voxel grid 2 cm", lambda: live_rows(
+        filters.voxel_downsample(o_frame_cloud(frames[0], dev, onehot=True), O["crf_leaf"])))
+    cx = vox2.xyz.cpu().numpy()
+    crgb = vox2.attrs["rgb"].cpu().numpy()
+    truth = np.argmax(vox2.attrs["onehot"].cpu().numpy(), 1).astype(np.int32)
+    rng = np.random.default_rng(O_SEED)
+    n2, C = len(cx), len(O_CLASSES)
+    flip = rng.random(n2) < O["crf"]["flip"]
+    noisy = np.where(flip, (truth + rng.integers(1, C, n2)) % C, truth).astype(np.int32)
+    cf = O["crf"]
+    p_other = (1.0 - cf["confidence"]) / (C - 1)
+    unary = np.full((n2, C), -np.log(p_other), np.float32)
+    unary[np.arange(n2), noisy] = -np.log(cf["confidence"])
+
+    def crf(impl):
+        m = ml.DenseCRF(n2, C, device=dev)
+        m.set_unary_energy(unary)
+        m.add_pairwise_gaussian(cx, cf["sxyz"])
+        m.add_pairwise_bilateral(cx, crgb, cf["sxyz"] * 4, cf["srgb"],
+                                 n_bins=cf["bilateral_bins"])
+        return m.inference(cf["iterations"], filter_impl=impl)
+
+    out["crf"] = {impl: run(f"(c) DenseCRF ({impl})", lambda impl=impl: crf(impl))
+                  for impl in ("permutohedral", "grid")}
+    out["crf_truth"], out["crf_noisy"] = truth, noisy
+
+    def cli():
+        from pcl_tpu_torch import io as tio
+
+        with tempfile.TemporaryDirectory() as d:
+            src, dst = os.path.join(d, "in.pcd"), os.path.join(d, "out.pcd")
+            tio.save(src, make_cloud(cx, attrs={"rgb": crgb, "label": noisy}, device=dev))
+            with contextlib.redirect_stdout(pyio.StringIO()):
+                crf_segmentation.main([src, dst, "-iters", str(cf["iterations"]), "-sxyz",
+                                       str(cf["sxyz"]), "-srgb", str(cf["srgb"]),
+                                       "-unary-confidence", str(cf["confidence"]), "--device",
+                                       dev.type])
+            return tio.load(dst, device=dev).attrs["label"].cpu().numpy()
+
+    out["crf_cli"] = run("(c) tools.crf_segmentation", cli)
+    # (d) tracking person 1 from its detection in frame 0
+    truth0 = frames[0]["centroids"][0]
+    near = [c_ for c_ in dets[0] if np.linalg.norm(np.asarray(c_.centroid) - truth0) < 0.5]
+    c0 = np.asarray(near[0].centroid if near else truth0, np.float64)
+    sel = o_reference_keep(cx, c0, coeffs, O["ref_radius"], top=2.4)
+    ref = make_cloud((cx[sel] - c0).astype(np.float32), device=dev)
+    init = torch.eye(4, dtype=torch.float32, device=dev)
+    init[:3, 3] = torch.as_tensor(c0, dtype=torch.float32, device=dev)
+    kc = O["kld"]
+    sn = torch.tensor(O["step_noise"], dtype=torch.float32, device=dev)
+    ks = kld.init_kld_tracker(kc["max"], kc["init"], init_pose=init, device=dev)
+    ps = pf.init_tracker(O["pf"], init_pose=init, device=dev)
+    g_k, g_p = gen(), gen()
+    track = {"kld": [], "pf": []}
+    for f, fr in enumerate(frames):
+        scene = vox2 if f == 0 else run("(d) voxel grid 2 cm", lambda: live_rows(
+            filters.voxel_downsample(o_frame_cloud(fr, dev), O["track_leaf"])))
+        dk = draws["kld"][f] if "kld" in draws else kld.draw_kld_step(ks, ref, g_k)
+        ks, pose_k = run("(d) step_tracker_kld", lambda: kld.step_tracker_kld_core(
+            ks, ref, scene, dk, step_noise=sn, bin_size=kc["bin_size"], epsilon=kc["epsilon"],
+            z_delta=kc["z_delta"]))
+        dp = draws["pf"][f] if "pf" in draws else pf.draw_tracker_step(ps, ref, g_p)
+        ps, pose_p = run("(d) step_tracker", lambda: pf.step_tracker_core(ps, ref, scene, dp,
+                                                                          step_noise=sn))
+        track["kld"].append((pose_k.cpu().numpy(), int(ks.active.sum())))
+        track["pf"].append(pose_p.cpu().numpy())
+    out["track"], out["c0"], out["n_ref"] = track, c0, int(sel.sum())
+    # (e) KLT over the sequence, and the corners of frame 0
+    g0 = frames[0]["grey"]
+    ac = O["agast"]
+    score = run("(e) agast", lambda: corners2d.agast_score(
+        torch.as_tensor(g0, device=dev), ac["threshold"]).cpu().numpy())
+    kps = run("(e) agast", lambda: corners2d.agast_keypoints(g0, ac["threshold"], device=dev))
+    order = np.argsort(-score[kps[:, 0], kps[:, 1]], kind="stable")[:ac["keep"]]
+    kps = kps[order]
+    out["agast"] = kps
+    pts = kps.astype(np.float32)
+    steps = []
+    for f in range(len(frames) - 1):
+        new, ok = run("(e) pyramidal_klt", lambda: pyramidal_klt(
+            frames[f]["grey"], frames[f + 1]["grey"], pts, device=dev, **O["klt"]))
+        steps.append((pts, new, ok))
+        pts = new[ok]
+    out["klt"] = steps
+    out["brisk"] = run("(e) brisk_descriptor", lambda: corners2d.brisk_descriptor(
+        g0, kps, device=dev))
+    out["brisk_kps"] = run("(e) brisk_keypoints", lambda: corners2d.brisk_keypoints(
+        g0, ac["threshold"], device=dev))
+    out["trajkovic"] = run("(e) trajkovic_keypoints", lambda: corners2d.trajkovic_keypoints(
+        g0, device=dev))
+    return out, secs
+
+
+def path_o_metrics(inp, out, O) -> dict:
+    """Path O's measures from a chain's host outputs (either package's)."""
+    frames = inp["frames"]
+    m = {"cv": out["svm"]["cv"], "rbf_train": out["svm"]["rbf_train"],
+         "lin_train": out["svm"]["lin_train"], "files": list(out["files"])}
+    # (b): per person, the frames wholly in view in which a detection lies within 0.3 m
+    found, cerr, herr, clutter, other = [], [], [], 0, 0
+    clutter_at = [np.array(L) for L in ((0.5 * (O_BOX[0][0] + O_BOX[1][0]), O_BOX[0][1],
+                                         0.5 * (O_BOX[0][2] + O_BOX[1][2])), O_SPHERE[0],
+                                        (O_CYLINDER[0][0], O_CYLINDER[2][0], O_CYLINDER[0][1]))]
+    R = _o_rotation()
+    clutter_cam = [c @ R for c in clutter_at]
+    for f, fr in enumerate(frames):
+        used = set()
+        for k in range(len(O_PEOPLE)):
+            if not fr["in_view"][k]:
+                continue
+            d = [np.linalg.norm(c - fr["centroids"][k]) for c, *_ in out["dets"][f]]
+            j = int(np.argmin(d)) if d else -1
+            ok = j >= 0 and d[j] < 0.3
+            found.append(ok)
+            if ok:
+                used.add(j)
+                cerr.append(d[j])
+                herr.append(abs(out["dets"][f][j][1] - O_PEOPLE[k]["height"]))
+        for j, (c, *_) in enumerate(out["dets"][f]):
+            if j in used:
+                continue
+            if min(np.linalg.norm(c - q) for q in clutter_cam) < 0.5:
+                clutter += 1
+            else:
+                other += 1
+    m.update(found=float(np.mean(found)) if found else 0.0, n_in_view=len(found),
+             centroid_err=float(np.max(cerr)) if cerr else math.inf,
+             height_err=float(np.max(herr)) if herr else math.inf, clutter=clutter, other=other)
+    # (c)
+    t, noisy = out["crf_truth"], out["crf_noisy"]
+    m["crf_before"] = float(np.mean(noisy == t))
+    for impl, q in out["crf"].items():
+        m[f"crf_{impl}"] = float(np.mean(np.argmax(q, 1) == t))
+    # the CLI reads the labels and 8-bit colours back from a PCD file
+    m["crf_cli"] = float(np.mean(out["crf_cli"] == t))
+    # (d): the MAP centroid against person 1's true path from the reference's centroid
+    v = o_camera_velocity(0)
+    true = np.array([out["c0"] + v * f / O_HZ for f in range(len(frames))])
+    for name in ("kld", "pf"):
+        poses = [p[0] if name == "kld" else p for p in out["track"][name]]
+        e = np.linalg.norm(np.array([p[:3, 3] for p in poses]) - true, axis=1)
+        m[f"rmse_{name}"] = float(np.sqrt(np.mean(e ** 2)))
+    m["kld_live"] = [n for _, n in out["track"]["kld"]]
+    # (e): each step's displacement against the rendered flow at the point's pixel
+    bg, people = [], []
+    H, W = O["shape"]
+    for f, (pts, new, ok) in enumerate(out["klt"]):
+        iy = np.clip(np.round(pts[:, 0]).astype(int), 0, H - 1)
+        ix = np.clip(np.round(pts[:, 1]).astype(int), 0, W - 1)
+        flow = frames[f]["flow"][iy, ix][:, ::-1]              # (dy, dx)
+        err = np.linalg.norm((new - pts) - flow, axis=1)[ok]
+        on_person = (frames[f]["cls"][iy, ix] >= 2)[ok] & (frames[f]["cls"][iy, ix] <= 3)[ok]
+        bg.extend(err[~on_person])
+        people.extend(err[on_person])
+    n0 = len(out["agast"])
+    m.update(klt_bg=float(np.median(bg)) if bg else math.inf,
+             klt_people=float(np.median(people)) if people else math.inf,
+             klt_share=float(out["klt"][-1][2].sum() / max(n0, 1)) if out["klt"] else 0.0,
+             n_agast=n0, n_brisk=len(out["brisk_kps"]), n_trajkovic=len(out["trajkovic"]))
+    return m
+
+
+O_PLAIN_ROWS = 1 << 18      # B1's plain version on the first rows of a call (all of path O's)
+O_NEAR = 1e-4               # a resampling point this near a cumulative-weight edge may flip
+# limits: 1.5 x the JAX package's CPU rehearsal at full width (tests/rehearse_path_o.py jax,
+# on this sequence, the trackers against each frame's whole 2 cm voxel cloud): the shares as
+# 1.5 x their shortfall. The rehearsal read cross-validation 1.0, both people in all 52
+# person-frames wholly in view, centroids 0.075541 m and heights 0.018883 m off at most, no
+# detection on the clutter, CRF accuracy 0.80017 -> 0.99960 (lattice), 0.96112 (grid),
+# 0.99961 (the CLI), tracker RMSE 0.16594 m (KLD) and 0.041861 m, KLT's median flow error on
+# the background 0.12150 px and 0.998 of its points tracked
+O_LIMITS = dict(cv=1.0, found=1.0, centroid_err=0.1133, height_err=0.02832, clutter=0,
+                crf_permutohedral=0.999405, crf_grid=0.9417, crf_cli=0.999413, rmse_kld=0.2489,
+                rmse_pf=0.06279, klt_bg=0.1823, klt_share=0.997)
+
+
+def o_checks(m, lim, expect):
+    """Path O's checks against ``O_LIMITS``; a check whose limit is None is
+    printed, not made."""
+    printed = []
+
+    def hold(cond, limit, what):
+        if limit is None:
+            printed.append(what)
+        else:
+            expect(cond, what)
+
+    L = lim["cv"]
+    hold(L is not None and m["cv"] >= L, L, f"(a) cross-validation accuracy {m['cv']:.4f} "
+                                            f"(limit {L})")
+    expect(all(m["files"]), f"(a) the libsvm model file does not round-trip: {m['files']}")
+    L = lim["found"]
+    hold(L is not None and m["found"] >= L, L,
+         f"(b) each person found in {m['found']:.4f} of the {m['n_in_view']} person-frames "
+         f"wholly in view (limit {L})")
+    for key, unit in (("centroid_err", "m"), ("height_err", "m")):
+        L = lim[key]
+        hold(L is not None and m[key] <= L, L, f"(b) largest {key.replace('_', ' ')} "
+                                               f"{m[key]:.4f} {unit} (limit {L})")
+    hold(m["clutter"] <= (lim["clutter"] or 0), lim["clutter"],
+         f"(b) {m['clutter']} detections on the clutter (limit {lim['clutter']})")
+    for impl in ("permutohedral", "grid", "cli"):
+        acc, L = m[f"crf_{impl}"], lim[f"crf_{impl}"]
+        hold(L is not None and acc >= L and acc > m["crf_before"], L,
+             f"(c) CRF ({impl}) label accuracy {acc:.5f} from {m['crf_before']:.5f} (limit {L})")
+    for name in ("kld", "pf"):
+        L = lim[f"rmse_{name}"]
+        hold(L is not None and m[f"rmse_{name}"] <= L, L,
+             f"(d) {name} tracker's centroid RMSE {m[f'rmse_{name}']:.4f} m (limit {L})")
+    L = lim["klt_bg"]
+    hold(L is not None and m["klt_bg"] <= L, L, f"(e) KLT's median flow error on the background "
+                                                f"{m['klt_bg']:.4f} px (limit {L})")
+    L = lim["klt_share"]
+    hold(L is not None and m["klt_share"] >= L, L, f"(e) KLT's share of tracked points "
+                                                   f"{m['klt_share']:.4f} (limit {L})")
+    return printed
+
+
+def _o_rows_agree(a, b, w, u0, tol=1e-4):
+    """Resampled particles row by row: rows off every cumulative-weight edge
+    (``O_NEAR``) agree to ``tol``; returns ``(rows apart, rows near an
+    edge)``."""
+    w = np.asarray(w, np.float64)
+    P = len(w)
+    cum = np.cumsum(w) / w.sum()
+    near = np.abs(float(u0) + np.arange(P)[:, None] / P - cum[None, :]).min(1) <= O_NEAR
+    apart = np.abs(a - b).max(1) > tol
+    return int(apart.sum()), int(near.sum()), bool((apart & ~near).any())
+
+
+def o_card_vs_cpu(expect, card=None):
+    """Path O's functions on the card against the port's CPU run: the chain
+    at 80 x 60 with CPU-drawn samples, and one step of each tracker from one
+    state. Returns lines to print."""
+    from pcl_tpu_torch import filters
+    from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.people import hog
+    from pcl_tpu_torch.tracking import kld, particle_filter as pf
+
+    card = torch.device("cuda") if card is None else card
+    cpu = torch.device("cpu")
+    O = O_SMALL
+    small = path_o_inputs(O)
+    a, b = (path_o_chain(small, O, d, gen_dev="cpu")[0] for d in (card, cpu))
+    lines = []
+    wgap = float(np.abs(a["svm"]["lin_w"] - b["svm"]["lin_w"]).max()
+                 / np.abs(b["svm"]["lin_w"]).max())
+    expect(wgap <= 1e-4 and a["svm"]["cv"] == b["svm"]["cv"] and all(a["files"]),
+           f"(card vs CPU) (a) w by {wgap}, cross-validation {a['svm']['cv']} / {b['svm']['cv']}")
+    same_n = [len(x) for x in a["dets"]] == [len(x) for x in b["dets"]]
+    dgap = max([float(np.abs(p[0] - q[0]).max()) + abs(p[1] - q[1]) for x, y in
+                zip(a["dets"], b["dets"]) for p, q in zip(x, y)] or [0.0])
+    npts = all(p[2] == q[2] for x, y in zip(a["dets"], b["dets"]) for p, q in zip(x, y))
+    sgap = max([abs(p[3] - q[3]) / max(abs(q[3]), 1.0) for x, y in zip(a["dets"], b["dets"])
+                for p, q in zip(x, y)] or [0.0])
+    expect(same_n and npts and dgap <= 1e-5 and sgap <= 1e-5,
+           f"(card vs CPU) (b) detections: counts equal {same_n}, points {npts}, centroids and "
+           f"heights by {dgap}, scores by {sgap}")
+    cgap, firm_same = 0.0, True
+    for impl in ("permutohedral", "grid"):
+        qa, qb = a["crf"][impl], b["crf"][impl]
+        cgap = max(cgap, float(np.abs(qa - qb).max()) if len(qb) else 0.0)
+        top2 = np.sort(qb, 1)[:, -2:]
+        firm = top2[:, 1] - top2[:, 0] > 1e-4
+        firm_same &= bool(np.array_equal(qa.argmax(1)[firm], qb.argmax(1)[firm]))
+    cli_same = float(np.mean(a["crf_cli"] == b["crf_cli"]))
+    expect(cgap <= 1e-4 and firm_same and cli_same >= 0.99,
+           f"(card vs CPU) (c) posteriors by {cgap}, firm labels equal {firm_same}, the CLI's "
+           f"labels {cli_same:.4f} equal")
+    (pa, na, oka), (pb, nb, okb) = a["klt"][0], b["klt"][0]
+    kgap = float(np.abs(na - nb)[okb].max()) if okb.any() else 0.0
+    same_corners = all(np.array_equal(a[k], b[k])
+                       for k in ("agast", "brisk", "brisk_kps", "trajkovic"))
+    expect(kgap <= 1e-3 and np.array_equal(oka, okb) and same_corners,
+           f"(card vs CPU) (e) KLT by {kgap} px (status equal {np.array_equal(oka, okb)}), "
+           f"corners equal {same_corners}")
+    # one step of each tracker from one state and one set of CPU draws
+    fr = small["frames"][1]
+    out = {}
+    for d in (card, cpu):
+        scene = live_rows(filters.voxel_downsample(o_frame_cloud(fr, d), O["track_leaf"]))
+        xyz = scene.xyz.cpu().numpy()
+        keep = o_reference_keep(xyz, b["c0"], b["ground"], O["ref_radius"], top=2.4)
+        ref = make_cloud(xyz[keep] - b["c0"].astype(np.float32), device=d)
+        init = torch.eye(4, device=d)
+        init[:3, 3] = torch.as_tensor(b["c0"], dtype=torch.float32, device=d)
+        sn = torch.tensor(O["step_noise"], device=d)
+        ks = kld.init_kld_tracker(O["kld"]["max"], O["kld"]["init"], init_pose=init, device=d)
+        ps = pf.init_tracker(O["pf"], init_pose=init, device=d)
+        g = torch.Generator()
+        g.manual_seed(O_SEED)
+        dk = kld.draw_kld_step(ks, ref, g)
+        dp = pf.draw_tracker_step(ps, ref, g)
+        kw = dict(bin_size=O["kld"]["bin_size"], epsilon=O["kld"]["epsilon"],
+                  z_delta=O["kld"]["z_delta"])
+        nk, posek = kld.step_tracker_kld_core(ks, ref, scene, dk, step_noise=sn, **kw)
+        npf, posep = pf.step_tracker_core(ps, ref, scene, dp, step_noise=sn)
+        wk = kld.weigh_kld(ks, ref, scene, dk, sn)[1]
+        out[d.type] = (posek.cpu().numpy(), nk.particles.cpu().numpy(), nk.active.cpu().numpy(),
+                       wk.cpu().numpy(), dk.u0.cpu(), posep.cpu().numpy(),
+                       npf.particles.cpu().numpy())
+    (ka, xa, aa, _, _, pa_, ya), (kb, xb, ab, wb, u0, pb_, yb) = out[card.type], out["cpu"]
+    tgap = max(float(np.abs(ka - kb).max()), float(np.abs(pa_ - pb_).max()))
+    apart, near, bad = _o_rows_agree(xa, xb, wb, u0)
+    expect(tgap <= 1e-4 and np.array_equal(aa, ab) and not bad,
+           f"(card vs CPU) (d) tracker poses by {tgap}, live slots equal {np.array_equal(aa, ab)}, "
+           f"{apart} KLD particles apart ({near} near an edge)")
+    lines.append(f"80 x 60 chain: w {wgap:.1e}, detections {sum(len(x) for x in b['dets'])} equal "
+                 f"{same_n and npts} ({dgap:.1e}), CRF {cgap:.1e}, KLT {kgap:.1e} px, corners "
+                 f"equal {same_corners}; one tracker step: poses {tgap:.1e}, {apart} KLD "
+                 f"particles apart ({near} near an edge)")
+    # HOG on the card against the CPU, on one window of frame 0
+    img = small["frames"][0]["grey"][:, :48]
+    ha, hb = (hog.hog_features(torch.as_tensor(img, device=d)).cpu().numpy() for d in (card, cpu))
+    share = float(np.mean(np.abs(ha - hb).max(1) <= 1e-5))
+    expect(share >= 0.9, f"(card vs CPU) hog_features: {share:.3f} of the blocks within 1e-5")
+    lines.append(f"hog_features: {share:.3f} of the blocks within 1e-5")
+    return lines
+
+
+def phase17_path_o(segsum, nn1_mod, record_b1, record_b2):
+    """Path O: PCL's people-detection, CRF and tracking tutorials on a 30-frame
+    VGA RGB-D sequence."""
+    from pcl_tpu_torch.search import bruteforce
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 17: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    dev = torch.device("cuda")
+    O = O_FULL
+    inp, isecs = timed(lambda: path_o_inputs(O))
+    print(f"phase 17: inputs in {isecs:.1f} s: {O['frames']} frames of "
+          f"{int(np.mean([f['valid'].sum() for f in inp['frames']]))} valid pixels on average, "
+          f"{len(inp['pos'])} positive and {len(inp['neg'])} negative windows; persons wholly in "
+          f"view in {sum(sum(f['in_view']) for f in inp['frames'])} person-frames", flush=True)
+    small = path_o_inputs(O_SMALL)
+    _, wsecs = timed(lambda: path_o_chain(small, O_SMALL, dev))
+    print(f"phase 17: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    with kernel_calls(bruteforce, segsum) as calls:
+        (out, secs), total = timed(lambda: path_o_chain(
+            inp, O, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
+    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["O"] = b1
+    record_b2["launches_by_path"]["O"] = b2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = card_line()
+    F = O["frames"]
+    print(f"phase 17: path O in {total:.1f} s ({total / F * 1e3:.1f} ms a frame), peak memory "
+          f"{peak:.2f} GiB, launches nn1 {b1}, segsum {b2} [{card}]", flush=True)
+    for name, v in secs.items():
+        print(f"phase 17: {name}: {v * 1e3:.1f} ms [{card}]", flush=True)
+    parts = {p: sum(v for k, v in secs.items() if k.startswith(p))
+             for p in ("(a)", "(b)", "(c)", "(d)", "(e)")}
+    print("phase 17: by part " + ", ".join(f"{p} {v:.2f} s" for p, v in parts.items())
+          + "; per frame " + ", ".join(f"{p} {parts[p] / F * 1e3:.1f} ms"
+                                       for p in ("(b)", "(d)", "(e)")) + f" [{card}]", flush=True)
+    expect(b2 == 2 * F and b1 == 2 * F,
+           f"path O launched B2 {b2} times (a 0.06 m and a 2 cm voxel grid a frame: {2 * F}) "
+           f"and B1 {b1} times (each tracker once a step: {2 * F})")
+    expect(len(calls["nn1"]) == b1 and len(calls["segsum"]) == b2,
+           "the kept kernel calls do not match the launch counts")
+    m = path_o_metrics(inp, out, O)
+    print("phase 17: metrics " + json.dumps(m, default=float), flush=True)
+    for what in o_checks(m, O_LIMITS, expect):
+        print(f"phase 17: printed, not checked (the reference does not meet it): {what}",
+              flush=True)
+    lines, csecs = timed(lambda: o_card_vs_cpu(expect))
+    print(f"phase 17: card against CPU ({csecs:.1f} s): " + "; ".join(lines), flush=True)
+    rows1, rows2 = hold_to_plain(calls, nn1_mod, segsum, expect, "phase 17:", O_PLAIN_ROWS, card,
+                                 time_once="stage")
+    record_b1["path_o"] = rows1
+    record_b2["path_o"] = rows2
+    check(not failed, "path O: " + "; ".join(failed))
+    return {"total_s": total, "peak_gib": peak, "parts": parts, "metrics": m}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6140,13 +7087,15 @@ def main() -> int:
     lap("phase 15")
     out_n = phase16_path_n(segsum, nn1_mod, record, record_b2)
     lap("phase 16")
+    out_o = phase17_path_o(segsum, nn1_mod, record, record_b2)
+    lap("phase 17")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
         # H (the rest of registration), I (the sharded functions, one rank),
         # J (the filter front end), K (descriptors, keypoints, clusters),
         # L (surface reconstruction and segmentation), M (the octree, range
-        # images and NARF), N (recognition)
+        # images and NARF), N (recognition), O (people, CRF and tracking)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -6172,7 +7121,8 @@ def main() -> int:
           + ", ".join(f"{k} {v[0] * 1e3:.1f}/{v[1] * 1e3:.1f}" for k, v in times_k.items())
           + f"; path L {out_l['total_s']:.1f} s, peak {out_l['peak_gib']:.2f} GiB"
           + f"; path M {out_m['total_s']:.2f} s, peak {out_m['peak_gib']:.2f} GiB"
-          + f"; path N {out_n['total_s']:.1f} s, peak {out_n['peak_gib']:.2f} GiB [{card}]",
+          + f"; path N {out_n['total_s']:.1f} s, peak {out_n['peak_gib']:.2f} GiB"
+          + f"; path O {out_o['total_s']:.1f} s, peak {out_o['peak_gib']:.2f} GiB [{card}]",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

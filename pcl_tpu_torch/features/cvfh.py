@@ -19,6 +19,7 @@ import torch
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.core.geometry import _cross
 from pcl_tpu_torch.features.global_desc import estimate_vfh
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.segmentation.region_growing import region_growing
 
 _EPS = 1e-12
@@ -119,8 +120,8 @@ def estimate_crh(cloud: Cloud, viewpoint: Optional[torch.Tensor] = None, nbins: 
     f = pos - torch.floor(pos)
     wt = w * mag
     hist = torch.zeros(nbins, dtype=torch.float32, device=dev)
-    hist.index_put_((b0,), wt * (1 - f), accumulate=True)
-    hist.index_put_(((b0 + 1) % nbins,), wt * f, accumulate=True)
+    add_rows(hist, b0, wt * (1 - f))
+    add_rows(hist, (b0 + 1) % nbins, wt * f)
     return hist / torch.clamp(torch.sum(hist), min=_EPS)
 
 

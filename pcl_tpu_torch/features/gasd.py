@@ -13,6 +13,7 @@ import torch
 from pcl_tpu_torch.core import geometry
 from pcl_tpu_torch.core.cloud import ATTR_RGB, Cloud
 from pcl_tpu_torch.core.geometry import _cross
+from pcl_tpu_torch.ops.segsum import add_rows
 
 _EPS = 1e-12
 
@@ -58,8 +59,7 @@ def estimate_gasd(cloud: Cloud, grid_size: int = 8) -> torch.Tensor:
                      for i, di in enumerate((dx, dy, dz))]
                 wt = (w * (f[:, 0] if dx else 1 - f[:, 0]) * (f[:, 1] if dy else 1 - f[:, 1])
                       * (f[:, 2] if dz else 1 - f[:, 2]))
-                hist.index_put_(((c[0] * grid_size + c[1]) * grid_size + c[2],), wt,
-                                accumulate=True)
+                add_rows(hist, (c[0] * grid_size + c[1]) * grid_size + c[2], wt)
     return hist / torch.clamp(torch.sum(hist), min=_EPS)
 
 
@@ -80,5 +80,5 @@ def estimate_gasd_color(cloud: Cloud, grid_size: int = 4, hue_bins: int = 12) ->
     cell = torch.clamp(((xyz / r * 0.5 + 0.5) * grid_size).to(torch.int64), 0, grid_size - 1)
     flat = (cell[:, 0] * grid_size + cell[:, 1]) * grid_size + cell[:, 2]
     hist = torch.zeros(grid_size ** 3 * hue_bins, dtype=torch.float32, device=xyz.device)
-    hist.index_put_((flat * hue_bins + hb,), w, accumulate=True)
+    add_rows(hist, flat * hue_bins + hb, w)
     return hist / torch.clamp(torch.sum(hist), min=_EPS)

@@ -16,6 +16,7 @@ import torch
 
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.features.shot import _f32
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.search import bruteforce
 
 # GRSD surface categories (PCL's thresholds)
@@ -71,10 +72,9 @@ def estimate_grsd(cloud: Cloud, radius: float, *, plane_radius: float = 0.2, k: 
     lo, hi = torch.minimum(ci, cj), torch.maximum(ci, cj)
     pair_bin = lo * N_CATEGORIES - (lo * (lo - 1)) // 2 + (hi - lo)
     hist = torch.zeros(GRSD_BINS, dtype=torch.float32, device=xyz.device)
-    hist.index_put_((pair_bin.reshape(-1),), valid.to(torch.float32).reshape(-1),
-                    accumulate=True)
+    add_rows(hist, pair_bin.reshape(-1), valid.to(torch.float32).reshape(-1))
     occ = torch.zeros(N_CATEGORIES, dtype=torch.float32, device=xyz.device)
-    occ.index_put_((cat,), mask.to(torch.float32), accumulate=True)
+    add_rows(occ, cat, mask.to(torch.float32))
     base = N_CATEGORIES * (N_CATEGORIES + 1) // 2
     hist[base:base + N_CATEGORIES] = occ
     return hist / torch.clamp(torch.sum(hist), min=1e-12)

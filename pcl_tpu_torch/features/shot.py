@@ -11,10 +11,10 @@ distance.
   majority sign with the median-window tie-break), bin layout and
   normalisation; ``estimate_shot_hard`` bins each neighbour once.
 - The JAX package sums each histogram as a split one-hot matrix product, a
-  TPU layout trick; here the weighted targets are added into their bins with
-  ``index_put_(accumulate=True)``, which adds duplicates in index order on
-  the CPU and, through a stable sort, on the card, so the card repeats its
-  histograms bitwise (ROADMAP C28, C44).
+  TPU layout trick; here the weighted targets are added into their bins by
+  ``ops.segsum.add_rows``, which adds duplicates in index order on both
+  devices, so every run repeats its histograms bitwise (ROADMAP C28, C44,
+  C84).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from pcl_tpu_torch import search as search_mod
 from pcl_tpu_torch.core import geometry
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, ATTR_RGB, Cloud
 from pcl_tpu_torch.core.geometry import _cross
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.search import bruteforce
 from pcl_tpu_torch.search import organized as org_mod
 
@@ -47,7 +48,7 @@ def _scatter_rows(targets: torch.Tensor, weights: torch.Tensor, nbins: int) -> t
     rows = torch.arange(n, device=targets.device).reshape((n,) + (1,) * (targets.ndim - 1))
     flat = (rows * nbins + targets.long()).reshape(-1)
     hist = weights.new_zeros(n * nbins)
-    hist.index_put_((flat,), weights.reshape(-1).to(hist.dtype), accumulate=True)
+    add_rows(hist, flat, weights.reshape(-1).to(hist.dtype))
     return hist.reshape(n, nbins)
 
 

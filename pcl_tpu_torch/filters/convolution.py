@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud, make_cloud
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.search import bruteforce
 
 
@@ -74,7 +75,7 @@ def fast_bilateral(
     corners = [(di, dj, dk) for di in (0, 1) for dj in (0, 1) for dk in (0, 1)]
     for di, dj, dk in corners:
         w = _corner_weight(fx, fy, fz, di, dj, dk) * valid
-        grid.index_put_((j0 + dj, i0 + di, k0 + dk), vw * w[..., None], accumulate=True)
+        add_rows(grid, (j0 + dj, i0 + di, k0 + dk), vw * w[..., None])
     for ax in range(3):
         grid = 0.25 * torch.roll(grid, 1, ax) + 0.5 * grid + 0.25 * torch.roll(grid, -1, ax)
 

@@ -18,6 +18,7 @@ import math
 import torch
 
 from pcl_tpu_torch.core.cloud import ATTR_INTENSITY, ATTR_NORMAL, Cloud
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.sac.models import SacModel
 from pcl_tpu_torch.search import bruteforce
 from pcl_tpu_torch.search.cell_list import _mul32
@@ -142,8 +143,7 @@ def approximate_voxel_grid(cloud: Cloud, leaf_size) -> Cloud:
     h = torch.where(cloud.mask, _hash_cells(cell, (73856093, 19349669, 83492791), table), table)
     w = cloud.mask.to(torch.float32)
     sums = torch.zeros((table + 1, 4), dtype=torch.float32, device=dev)
-    sums.index_put_((h,), torch.cat([cloud.xyz * w[:, None], w[:, None]], dim=1),
-                    accumulate=True)
+    add_rows(sums, h, torch.cat([cloud.xyz * w[:, None], w[:, None]], dim=1))
     cent = sums[:table, :3] / torch.clamp(sums[:table, 3], min=1.0)[:, None]
     occupied = sums[:table, 3] > 0
     order = torch.argsort((~occupied).to(torch.int32), stable=True)[:cloud.capacity]

@@ -4,8 +4,9 @@ Turns arrays that the JAX package produced, already converted to numpy by
 the caller (``np.asarray(jax_array)``), into the port's objects, so that a
 cloud, a cell table, a hash grid, an NDT grid, a TSDF volume, a KinFu
 tracker's state, a linear octree, an occupancy grid, a range image, an
-implicit shape model, a global-descriptor database, a random forest or a
-LINEMOD template built there can be used here. This module reads only
+implicit shape model, a global-descriptor database, a random forest, a
+LINEMOD template, an SVM, a permutohedral lattice, a person classifier or a
+tracker's state built there can be used here. This module reads only
 numpy arrays and plain values; it imports nothing of the JAX package.
 """
 
@@ -20,15 +21,20 @@ from pcl_tpu_torch.core.cloud import Cloud, _device
 from pcl_tpu_torch.core.range_image import RangeImage
 from pcl_tpu_torch.fusion.kinfu import KinfuState
 from pcl_tpu_torch.fusion.tsdf import TSDFVolume
+from pcl_tpu_torch.ml.permutohedral import Lattice
+from pcl_tpu_torch.ml.svm import SVMModel
 from pcl_tpu_torch.ml.trees import DecisionTree, RandomForest
 from pcl_tpu_torch.octree.containers import OccupancyGrid
 from pcl_tpu_torch.octree.linear import LinearOctree
+from pcl_tpu_torch.people.classifier import PersonClassifier
 from pcl_tpu_torch.recognition.global_pipeline import GlobalModelDatabase
 from pcl_tpu_torch.recognition.ism import ISMModel
 from pcl_tpu_torch.recognition.linemod import LinemodTemplate
 from pcl_tpu_torch.registration.ndt import NDTGrid
 from pcl_tpu_torch.search.cell_list import CellTable
 from pcl_tpu_torch.search.hashgrid import HashGrid
+from pcl_tpu_torch.tracking.kld import KLDState
+from pcl_tpu_torch.tracking.particle_filter import ParticleFilterState
 
 
 def cloud_from_arrays(
@@ -281,3 +287,50 @@ def linemod_template_from_arrays(offsets, bins, modality, height: int,
     """A LINEMOD template extracted elsewhere."""
     return LinemodTemplate(np.asarray(offsets, np.int32), np.asarray(bins, np.int32),
                            np.asarray(modality, np.int32), int(height), int(width))
+
+
+def svm_model_from_arrays(kernel: str, w, b, support, gamma, mean, scale,
+                          device=None) -> SVMModel:
+    """An SVM trained elsewhere, on ``device`` (default CUDA). ``kernel`` is
+    "linear" or "rbf" (the JAX package's dual trainer stores 0: pass the
+    kernel it was trained with)."""
+    dev = _device(device)
+
+    def t(v):
+        return torch.tensor(np.asarray(v, np.float32), device=dev)
+
+    return SVMModel(kernel=str(kernel), w=t(w), b=t(b), support=t(support), gamma=t(gamma),
+                    mean=t(mean), scale=t(scale))
+
+
+def lattice_from_arrays(offsets, barycentric, blur_n1, blur_n2, m: int, d: int) -> Lattice:
+    """A permutohedral lattice built elsewhere (host arrays, as the port
+    keeps them)."""
+    return Lattice(np.asarray(offsets, np.int32), np.asarray(barycentric, np.float32),
+                   np.asarray(blur_n1, np.int32), np.asarray(blur_n2, np.int32), int(m), int(d))
+
+
+def person_classifier_from_arrays(window_height: int, window_width: int, b: float,
+                                  weights) -> PersonClassifier:
+    """A HOG and linear-SVM person classifier trained elsewhere."""
+    return PersonClassifier({"window_height": int(window_height),
+                             "window_width": int(window_width), "b": float(b),
+                             "weights": np.asarray(weights, np.float32)})
+
+
+def tracker_state_from_arrays(particles, weights, ref_pose, device=None) -> ParticleFilterState:
+    """A particle filter's state (its key stays behind: the port's steps
+    take their draws, ROADMAP C17)."""
+    dev = _device(device)
+    return ParticleFilterState(
+        particles=torch.tensor(np.asarray(particles, np.float32), device=dev),
+        weights=torch.tensor(np.asarray(weights, np.float32), device=dev),
+        ref_pose=torch.tensor(np.asarray(ref_pose, np.float32), device=dev))
+
+
+def kld_state_from_arrays(particles, active, ref_pose, device=None) -> KLDState:
+    """A KLD-adaptive particle filter's state (without its key)."""
+    dev = _device(device)
+    return KLDState(particles=torch.tensor(np.asarray(particles, np.float32), device=dev),
+                    active=torch.tensor(np.asarray(active, bool), device=dev),
+                    ref_pose=torch.tensor(np.asarray(ref_pose, np.float32), device=dev))

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pcl_tpu_torch.ops.segsum import add_rows
+
 
 def kmeans_init_indices(mask: torch.Tensor, k: int,
                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -47,9 +49,9 @@ def kmeans_core(x: torch.Tensor, mask: torch.Tensor, k: int, init_idx: torch.Ten
     it = 0
     while it < max_iterations:
         lab = assign(cent)
-        sums = torch.zeros((k + 1, x.shape[1]), device=x.device).index_put_(
-            (lab,), x * w[:, None], accumulate=True)[:k]
-        cnts = torch.zeros(k + 1, device=x.device).index_put_((lab,), w, accumulate=True)[:k]
+        sums = add_rows(torch.zeros((k + 1, x.shape[1]), device=x.device), lab,
+                        x * w[:, None])[:k]
+        cnts = add_rows(torch.zeros(k + 1, device=x.device), lab, w)[:k]
         new = torch.where(cnts[:, None] > 0, sums / torch.clamp(cnts, min=1.0)[:, None], cent)
         shift = torch.amax(torch.linalg.vector_norm(new - cent, dim=1))
         cent, it = new, it + 1

@@ -41,6 +41,29 @@ I32_BIG = 2 ** 31 - 1
 SEQUENTIAL_ROWS = 64
 
 
+def add_rows(out: torch.Tensor, idx, vals: torch.Tensor) -> torch.Tensor:
+    """``out[idx] += vals`` in place with duplicates added in index order on
+    either device: ``index_add_`` on the CPU (a sequential loop whatever the
+    number of threads; the CPU's ``index_put_`` with ``accumulate`` adds from
+    several threads at once, ROADMAP C84) and ``index_put_`` with
+    ``accumulate`` on the card (a stable sort of the ids, then each run added
+    in order; the card's ``index_add_`` uses atomics). ``idx`` is one index
+    tensor into dimension 0 or a tuple of them into the leading dimensions
+    (broadcast together, as ``index_put_`` takes them). Returns ``out``."""
+    if isinstance(idx, tuple):
+        parts = torch.broadcast_tensors(*idx)
+        flat = parts[0].long()
+        for k, part in enumerate(parts[1:], 1):
+            flat = flat * out.shape[k] + part.long()
+        rest = out.shape[len(parts):]
+        add_rows(out.view((-1,) + tuple(rest)), flat.reshape(-1),
+                 vals.expand(parts[0].shape + tuple(rest)).reshape((-1,) + tuple(rest)))
+        return out
+    if out.device.type == "cpu":
+        return out.index_add_(0, idx.long(), vals)
+    return out.index_put_((idx.long(),), vals, accumulate=True)
+
+
 def segment_sum_sorted_plain(vals: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version, adding each segment's rows onto zeros in
     ascending row order, deterministically: ``index_add_`` on the CPU (a
@@ -53,11 +76,7 @@ def segment_sum_sorted_plain(vals: torch.Tensor, seg: torch.Tensor) -> torch.Ten
     keep = (seg >= 0) & (seg < n)
     idx = torch.where(keep, seg.long(), n)
     out = torch.zeros((n + 1, w), dtype=vals.dtype, device=vals.device)
-    if vals.device.type == "cpu":
-        out.index_add_(0, idx, vals)
-    else:
-        out.index_put_((idx,), vals, accumulate=True)
-    return out[:n]
+    return add_rows(out, idx, vals)[:n]
 
 
 _argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2

@@ -25,10 +25,10 @@ from __future__ import annotations
 import torch
 
 from pcl_tpu_torch.core.transforms import se3_exp
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.parallel.mesh import POINTS_AXIS, Axis, Mesh, _psum, _shard
 from pcl_tpu_torch.registration.graph import (
     PoseGraphResult,
-    _add_rows,
     _block_jacobi_cg,
     _edge_system,
 )
@@ -62,10 +62,10 @@ def sharded_lum(
     prior[0] = 1e12
     for _ in range(max_iterations):
         H_ii, H_jj, H_ij, g_i, g_j, _res = _edge_system(P, es, ed, cs, cd, cv)
-        g = _add_rows(_add_rows(torch.zeros((V, 6), dtype=torch.float32, device=dev),
-                                es, g_i), ed, g_j)
-        D = _add_rows(_add_rows(torch.zeros((V, 6, 6), dtype=torch.float32, device=dev),
-                                es, H_ii), ed, H_jj)
+        g = add_rows(add_rows(torch.zeros((V, 6), dtype=torch.float32, device=dev),
+                              es, g_i), ed, g_j)
+        D = add_rows(add_rows(torch.zeros((V, 6, 6), dtype=torch.float32, device=dev),
+                              es, H_ii), ed, H_jj)
         gD = _psum(mesh, torch.cat([g.reshape(-1), D.reshape(-1)]), axis)
         g, D = gD[:6 * V].reshape(V, 6), gD[6 * V:].reshape(V, 6, 6)
         tr = torch.einsum("vaa->", D) / (6.0 * V)
@@ -75,7 +75,7 @@ def sharded_lum(
             xi, xj = x[es], x[ed]
             yi = torch.einsum("eab,eb->ea", H_ii, xi) + torch.einsum("eab,eb->ea", H_ij, xj)
             yj = torch.einsum("eba,eb->ea", H_ij, xi) + torch.einsum("eab,eb->ea", H_jj, xj)
-            y = _add_rows(_add_rows(torch.zeros_like(x), es, yi), ed, yj)
+            y = add_rows(add_rows(torch.zeros_like(x), es, yi), ed, yj)
             # the one collective of a CG step: [V, 6]
             return _psum(mesh, y, axis) + (prior + damp) * x
 

@@ -16,8 +16,8 @@ CorrespondenceRejectorSampleConsensus pass both apply).
   trilinearly into a hashed grid. The cells are cast as XLA casts
   (``core.casts.xla_int32``, C71); the hash multiplies in int32 and wraps,
   and ``abs(h) % size`` is a floor modulo as in the reference, so INT_MIN's
-  bucket is the same. The splat adds with ``index_put_(accumulate=True)``,
-  which adds duplicates in index order on both devices (C28): the peaks do
+  bucket is the same. The splat adds with ``ops.segsum.add_rows``, which
+  adds duplicates in index order on both devices (C28, C84): the peaks do
   not depend on a run.
 - ``refine_grouping_sac``: per instance, RANSAC over its correspondences
   and Umeyama on the inliers. A sampler (:func:`draw_grouping_samples`, a
@@ -33,6 +33,7 @@ import torch
 
 from pcl_tpu_torch.core import geometry
 from pcl_tpu_torch.core.casts import norm3, xla_int32
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.sac.models import RegistrationModel
 from pcl_tpu_torch.sac.ransac import draw_samples, generator, ransac_core
 
@@ -84,7 +85,7 @@ def _splat(weights: torch.Tensor, h: torch.Tensor, table_size: int) -> torch.Ten
     """Sum of ``weights [C, B]`` per bucket ``h [C, B]`` (``table_size`` is
     the dump bucket), in index order."""
     out = torch.zeros(table_size + 1, dtype=torch.float32, device=weights.device)
-    return out.index_put_((h.reshape(-1).long(),), weights.reshape(-1), accumulate=True)[:table_size]
+    return add_rows(out, h.reshape(-1), weights.reshape(-1))[:table_size]
 
 
 def hough3d_grouping(

@@ -27,6 +27,7 @@ import torch
 
 from pcl_tpu_torch.core.cloud import _device
 from pcl_tpu_torch.core.transforms import se3_exp, se3_log, transform_points
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.registration.gicp import _skew
 
 
@@ -34,12 +35,6 @@ class PoseGraphResult(NamedTuple):
     poses: torch.Tensor        # [V,4,4] optimised absolute poses
     iterations: torch.Tensor   # int32
     residual: torch.Tensor     # f32 mean squared edge residual at the last linearisation
-
-
-def _add_rows(out: torch.Tensor, index, values: torch.Tensor) -> torch.Tensor:
-    """``out[index] += values`` with duplicates added in index order."""
-    return out.index_put_(index if isinstance(index, tuple) else (index,), values,
-                          accumulate=True)
 
 
 def _edge_system(P, edge_src, edge_dst, corr_src, corr_dst, corr_valid):
@@ -121,18 +116,18 @@ def lum(
     it = 0
     while it < max_iterations and bool(res > convergence_threshold):   # the one read-back
         H_ii, H_jj, H_ij, g_i, g_j, res = _edge_system(P, es, ed, corr_src, corr_dst, corr_valid)
-        g = _add_rows(_add_rows(torch.zeros((V, 6), dtype=torch.float32, device=dev),
-                                es, g_i), ed, g_j)
-        D = _add_rows(_add_rows(torch.zeros((V, 6, 6), dtype=torch.float32, device=dev),
-                                es, H_ii), ed, H_jj)
+        g = add_rows(add_rows(torch.zeros((V, 6), dtype=torch.float32, device=dev),
+                              es, g_i), ed, g_j)
+        D = add_rows(add_rows(torch.zeros((V, 6, 6), dtype=torch.float32, device=dev),
+                              es, H_ii), ed, H_jj)
         tr = torch.einsum("vaa->", D) / (6.0 * V)
         damp = damping * (tr + 1.0)
         if solver == "dense":
             H = torch.zeros((V, V, 6, 6), dtype=torch.float32, device=dev)
-            _add_rows(H, (es, es), H_ii)
-            _add_rows(H, (ed, ed), H_jj)
-            _add_rows(H, (es, ed), H_ij)
-            _add_rows(H, (ed, es), H_ij.transpose(-1, -2))
+            add_rows(H, (es, es), H_ii)
+            add_rows(H, (ed, ed), H_jj)
+            add_rows(H, (es, ed), H_ij)
+            add_rows(H, (ed, es), H_ij.transpose(-1, -2))
             Hf = H.permute(0, 2, 1, 3).reshape(6 * V, 6 * V)
             del H
             Hf.diagonal().add_(prior.reshape(-1) + damp)
@@ -143,7 +138,7 @@ def lum(
                 xi, xj = x[es], x[ed]
                 yi = torch.einsum("eab,eb->ea", H_ii, xi) + torch.einsum("eab,eb->ea", H_ij, xj)
                 yj = torch.einsum("eba,eb->ea", H_ij, xi) + torch.einsum("eab,eb->ea", H_jj, xj)
-                y = _add_rows(_add_rows(torch.zeros_like(x), es, yi), ed, yj)
+                y = add_rows(add_rows(torch.zeros_like(x), es, yi), ed, yj)
                 return y + (prior + damp) * x
 
             Dp = D + torch.diag_embed(prior + damp)

@@ -24,6 +24,7 @@ import torch
 
 from pcl_tpu_torch.core.cloud import Cloud
 from pcl_tpu_torch.ops.nn1 import _fma32
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.search.cell_list import _M32, _mix32
 
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
@@ -78,7 +79,7 @@ def _scatter_sum(n: int, index: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     ``accumulate``: duplicates are added in order on the CPU and, through a
     stable sort, on the card)."""
     out = v.new_zeros((n,) + tuple(v.shape[1:]))
-    return out.index_put_((index.long(),), v, accumulate=True)
+    return add_rows(out, index, v)
 
 
 def _one_grid(xy: torch.Tensor, mask: torch.Tensor, res: torch.Tensor, shift, table_size: int,

@@ -24,6 +24,7 @@ import torch
 
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.core.transforms import from_rt, hat
+from pcl_tpu_torch.ops.segsum import add_rows
 
 _ransac = importlib.import_module("pcl_tpu_torch.sac.ransac")
 
@@ -138,8 +139,8 @@ def ppf_core(model: Cloud, scene: Cloud, m_idx: torch.Tensor, sr_idx: torch.Tens
         * n_alpha + a_bin
     n_acc = n_scene_ref * n_model * n_alpha
     acc_idx = torch.where(ok, acc_idx, n_acc)
-    votes = torch.zeros(n_acc + 1, dtype=torch.int32, device=dev).index_put_(
-        (acc_idx.reshape(-1),), ok.to(torch.int32).reshape(-1), accumulate=True)[:-1]
+    votes = add_rows(torch.zeros(n_acc + 1, dtype=torch.int32, device=dev),
+                     acc_idx.reshape(-1), ok.to(torch.int32).reshape(-1))[:-1]
     best = torch.argmax(votes)
     n_votes = votes[best]
     b_sref = best // (n_model * n_alpha)

@@ -26,6 +26,7 @@ import torch
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, ATTR_RGB, Cloud
 from pcl_tpu_torch.features.shot import _f32
 from pcl_tpu_torch.filters.voxel_grid import uniform_sample
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.search import bruteforce
 
 
@@ -71,9 +72,9 @@ def supervoxel_clustering(cloud: Cloud, seed_resolution: float, color_importance
     def seg_mean(values, lab, fallback):
         w = (lab >= 0).to(torch.float32)
         labc = torch.where(lab >= 0, lab, S)
-        s = torch.zeros((S + 1, values.shape[1]), device=dev).index_put_(
-            (labc,), values * w[:, None], accumulate=True)[:S]
-        c = torch.zeros(S + 1, device=dev).index_put_((labc,), w, accumulate=True)[:S]
+        s = add_rows(torch.zeros((S + 1, values.shape[1]), device=dev), labc,
+                     values * w[:, None])[:S]
+        c = add_rows(torch.zeros(S + 1, device=dev), labc, w)[:S]
         return torch.where(c[:, None] > 0, s / torch.clamp(c, min=1.0)[:, None], fallback)
 
     zero3 = torch.zeros((S, 3), device=dev)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
+from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.surface.reconstruction import surface_nets
 
 
@@ -54,8 +55,7 @@ def indicator_grid(xyz: torch.Tensor, mask: torch.Tensor, normals: torch.Tensor,
                 wt = ((f[:, 0] if dx else 1.0 - f[:, 0]) * (f[:, 1] if dy else 1.0 - f[:, 1])
                       * (f[:, 2] if dz else 1.0 - f[:, 2]))
                 ii = torch.clamp(i0 + torch.tensor([dx, dy, dz], device=dev), 0, R - 1)
-                field.index_put_((ii[:, 0], ii[:, 1], ii[:, 2]), vec * wt[:, None],
-                                 accumulate=True)
+                add_rows(field, (ii[:, 0], ii[:, 1], ii[:, 2]), vec * wt[:, None])
 
     def cdiff(a, axis):
         return (torch.roll(a, -1, axis) - torch.roll(a, 1, axis)) * 0.5

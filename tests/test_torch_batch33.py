@@ -7,6 +7,7 @@ result (float32 rounding; the port's products are torch.matmul and einsum,
 which add in another order than the lane form's written-out sums).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ CPU: the bucket hash bit for bit, the packed table and populations exactly,
 and nn1_radius on tables built by the port and on tables carried over from
 the JAX package through pcl_tpu_torch.interop."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import numpy as np
 import pytest
 import torch

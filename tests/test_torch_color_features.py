@@ -13,6 +13,7 @@ of one; PPF angles are ``arccos`` too: 1e-3 rad (``sqrt(2 ulp)``), 1e-5
 elsewhere.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import math
 
 import jax.numpy as jnp

@@ -2,6 +2,7 @@
 estimation) with pcl_tpu on the CPU: the same seeded numpy inputs through
 both, compared with the tolerance stated at each assert."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ generators and logging.
   ``split`` keys agree within one ulp of the range's magnitude (C17).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import logging
 import threading
 import time

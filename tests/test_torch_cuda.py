@@ -7,6 +7,7 @@ that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import numpy as np
 import pytest
 import torch
@@ -1113,3 +1114,116 @@ def test_hough_splat_repeats_bitwise_on_the_card(cuda):
     assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
     assert torch.equal(runs[0][0], runs[2][0]) and torch.equal(runs[0][1], runs[2][1])
     assert bool(runs[0][0][0]) and float((runs[0][2] - runs[2][2]).abs().max()) <= 1e-5
+
+
+def _tracking_scene(seed=21):
+    """An object near the origin, and a scene of it moved a little beside a
+    floor patch."""
+    rng = np.random.default_rng(seed)
+    obj = rng.uniform([-0.1, -0.15, -0.05], [0.25, 0.15, 0.05], (200, 3)).astype(np.float32)
+    scene = np.concatenate([obj + [0.01, -0.006, 0.004],
+                            np.stack([rng.uniform(-0.6, 0.6, 600), np.full(600, -0.3),
+                                      rng.uniform(-0.6, 0.6, 600)], 1)]).astype(np.float32)
+    return obj, scene
+
+
+@pytest.mark.parametrize("tracker", ["pf", "kld"])
+def test_tracker_step_launches_b1_once_and_matches_cpu(cuda, tracker):
+    """One step of each particle filter scores every particle in one B1
+    launch; on the same CPU draws and state the card's MAP pose equals the
+    CPU run's to 1e-4, and its particles row by row to 1e-4 but for rows
+    whose sample point lies within 1e-4 of a cumulative-weight edge."""
+    from pcl_tpu_torch.tracking import kld, particle_filter as pf
+
+    obj, scene = _tracking_scene()
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ref, sc = make_cloud(obj, device=dev), make_cloud(scene, device=dev)
+        g = torch.Generator()
+        g.manual_seed(4)
+        sn = torch.tensor([0.01] * 3 + [0.02] * 3, device=dev)
+        if tracker == "pf":
+            st = pf.init_tracker(300, device=dev)
+            draws = pf.draw_tracker_step(st, ref, g)
+            weigh = pf.weigh(st, ref, sc, draws, sn)[1]
+            before = nn1_mod.nn1.launches
+            new, pose = pf.step_tracker_core(st, ref, sc, draws, step_noise=sn)
+        else:
+            st = kld.init_kld_tracker(400, 250, device=dev)
+            draws = kld.draw_kld_step(st, ref, g)
+            weigh = kld.weigh_kld(st, ref, sc, draws, sn)[1]
+            before = nn1_mod.nn1.launches
+            new, pose = kld.step_tracker_kld_core(st, ref, sc, draws, step_noise=sn,
+                                                  bin_size=0.1, epsilon=0.2, z_delta=2.326)
+        out[dev.type] = (nn1_mod.nn1.launches - before, pose.cpu().numpy(),
+                         new.particles.cpu().numpy(), weigh.cpu().numpy(), float(draws.u0))
+    (launched, pa, xa, _, _), (_, pb, xb, wb, u0) = out["cuda"], out["cpu"]
+    assert launched == 1
+    np.testing.assert_allclose(pa, pb, atol=1e-4)
+    cum = np.cumsum(wb.astype(np.float64)) / wb.sum()
+    P = len(wb)
+    near = np.abs(u0 + np.arange(P)[:, None] / P - cum[None, :]).min(1) <= 1e-4
+    apart = np.abs(xa - xb).max(1) > 1e-4
+    assert not (apart & ~near).any() and near.sum() <= P // 8
+
+
+def test_lattice_splat_and_dense_crf_repeat_bitwise_on_card(cuda):
+    """The permutohedral filter and both DenseCRF filters give the same bits
+    on two card runs (the splats add in C28's order) and agree with the CPU
+    run: the filter to 1e-5 of its largest value, the posteriors to 1e-4."""
+    from pcl_tpu_torch.ml import densecrf, permutohedral
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    xyz = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    labels = (xyz[:, 0] > 0.5).astype(np.int64) + 2 * (rgb[:, 1] > 0.5)
+    unary = np.full((n, 4), -np.log(0.2 / 3), np.float32)
+    unary[np.arange(n), labels] = -np.log(0.8)
+    feat = np.concatenate([xyz / 0.05, rgb / 0.1], 1)
+    vals = rng.uniform(0, 1, (n, 4)).astype(np.float32)
+    runs = {}
+    for dev, reps in ((cuda, 2), (torch.device("cpu"), 1)):
+        for r in range(reps):
+            f = permutohedral.PermutohedralFilter(feat, device=dev).compute(vals).cpu().numpy()
+            qs = []
+            for impl in ("permutohedral", "grid"):
+                crf = densecrf.DenseCRF(n, 4, device=dev)
+                crf.set_unary_energy(unary)
+                crf.add_pairwise_gaussian(xyz, 0.05)
+                crf.add_pairwise_bilateral(xyz, rgb, 0.2, 0.1, n_bins=6)
+                qs.append(crf.inference(5, filter_impl=impl))
+            runs[(dev.type, r)] = (f, qs)
+    (fa, qa), (fb, qb), (fc, qc) = runs[("cuda", 0)], runs[("cuda", 1)], runs[("cpu", 0)]
+    assert np.array_equal(fa, fb) and all(np.array_equal(x, y) for x, y in zip(qa, qb))
+    np.testing.assert_allclose(fa, fc, atol=1e-5 * np.abs(fc).max())
+    for x, y in zip(qa, qc):
+        np.testing.assert_allclose(x, y, atol=1e-4)
+
+
+def test_people_detector_grid_launches_b2_once(cuda):
+    """Path O's detector front end: the frame's 0.06 m voxel grid is one B2
+    launch, and the detections equal the CPU run's."""
+    from pcl_tpu_torch.people import GroundBasedPeopleDetector
+
+    rng = np.random.default_rng(9)
+    floor = np.stack([rng.uniform(-2, 2, 20000), np.full(20000, 1.2),
+                      rng.uniform(1.5, 5, 20000)], 1)
+    th = rng.uniform(0, 2 * np.pi, 6000)
+    person = np.stack([-0.5 + 0.18 * np.cos(th), 1.2 - rng.uniform(0.02, 1.7, 6000),
+                       3.0 + 0.18 * np.sin(th)], 1)
+    pts = (np.concatenate([floor, person]) + rng.normal(scale=0.003, size=(26000, 3))
+           ).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = segsum.segment_sum_sorted.launches
+        vox = filters.voxel_downsample(make_cloud(pts, device=dev), 0.06)
+        launched = segsum.segment_sum_sorted.launches - before
+        vox = vox.take(torch.nonzero(vox.mask)[:, 0])
+        det = GroundBasedPeopleDetector(ground_coeffs=np.array([0.0, -1.0, 0.0, 1.2]))
+        out[dev.type] = (launched, det.detect(vox))
+    assert out["cuda"][0] == 1
+    a, b = out["cuda"][1], out["cpu"][1]
+    assert len(a) == len(b) == 1 and a[0].n_points == b[0].n_points
+    np.testing.assert_allclose(a[0].centroid, b[0].centroid, atol=1e-5)
+    assert abs(a[0].height - b[0].height) <= 1e-5

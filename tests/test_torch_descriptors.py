@@ -21,6 +21,7 @@ eigenvectors (C9), dot products and histogram sums, so:
   its digits as ``|cos|`` nears 1 (``sqrt(2 ulp)`` ~ 3.5e-4 rad): 1e-3.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

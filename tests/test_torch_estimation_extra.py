@@ -12,6 +12,7 @@ another order of rounding); LM transforms 1e-5 after ten steps on a
 consistent pair, 1e-4 for the planar warp, which cannot reach the 3-D
 motion and stops where its damping leaves it."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ Tolerances:
 - samplers through their cores on the JAX package's own draws (ROADMAP C17):
   the same picks exactly.
 """
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

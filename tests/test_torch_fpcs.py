@@ -16,6 +16,7 @@ run decides on and checks that none lies within 1e-5 of its cut, so both
 packages' decisions are the same; kernel B1 and the JAX package's kd-tree
 may differ where two e1 points are equally near an e2 (ROADMAP C32)."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

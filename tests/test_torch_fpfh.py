@@ -14,6 +14,7 @@ core functions, the same neighbourhoods; the end-to-end ``estimate_fpfh`` /
 distances are bitwise equal; the hash grid's differ in rounding).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import math
 
 import jax.numpy as jnp

@@ -23,6 +23,7 @@ Tolerances, stated where each is checked:
   written by one package is read by the other, arrays equal.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax.numpy as jnp

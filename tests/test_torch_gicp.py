@@ -12,6 +12,7 @@ distances in the port and the matmul identity in the JAX package on the CPU,
 ROADMAP C1, which can move a near-tie).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ sample that float64 finds within 1e-5 of an edge (the count is printed).
 1e-6 (``torch.fft`` rounds apart from XLA's, C47).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 import math
 

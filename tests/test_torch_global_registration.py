@@ -17,6 +17,7 @@ which sample the scene differently, stops at one of several a few 1e-4
 apart, whichever its start is nearest).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax

@@ -14,6 +14,7 @@ Tolerances, stated where each is checked:
 - ``PoseGraph`` backends: the same names, poses as ``lum``'s tolerance.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax.numpy as jnp

@@ -17,6 +17,7 @@ Tolerances:
   scenes have one clear best flip a move.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax

@@ -9,6 +9,7 @@ order, so distances agree to 1e-6 relative (measured: bitwise); indices,
 take the earlier candidate slot (``lax.top_k``; the port's one stable sort).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

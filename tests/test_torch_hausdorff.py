@@ -8,6 +8,7 @@ takes the square root of the clamped matmul identity, so the two agree to
 the rounding of that identity: ``2^-22 (|a|^2 + |b|^2)`` in squared
 distance, bounded over the cloud."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

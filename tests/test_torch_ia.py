@@ -26,6 +26,7 @@ Feature kNN: indices equal except where two listed distances lie within
 1e-3 (descriptors of norm ~100, whose matrix products round differently).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax

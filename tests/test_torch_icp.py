@@ -9,6 +9,7 @@ JAX's ``icp`` with ``bruteforce.nn1`` swapped for the Pallas kernel run
 through the interpreter; against the unmodified CPU run only the transform is
 compared. The cell backend never calls nn1 and is compared as it is."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax

@@ -12,6 +12,7 @@ Tolerances:
   and each package's model files load in the other.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ imports JAX or the JAX package, and every module imports on a machine without
 a card, nvcc or triton; the constructors that pick a device ask for CUDA
 unless told otherwise; chip_smoke.py refuses to run without a card."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import ast
 import importlib
 import os
@@ -27,6 +28,10 @@ from pcl_tpu_torch.octree.double_buffer import DoubleBufferedOctree
 from pcl_tpu_torch.recognition import global_pipeline as tgp
 from pcl_tpu_torch.recognition import ism as tism
 from pcl_tpu_torch.recognition import linemod as tlm
+from pcl_tpu_torch import keypoints as tkeypoints
+from pcl_tpu_torch import ml as tml
+from pcl_tpu_torch import tracking as ttracking
+from pcl_tpu_torch.ml import permutohedral as tperm
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pcl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -118,7 +123,12 @@ def test_new_modules_are_covered():
                  "tools/linemod_detection.py", "tools/train_linemod_template.py",
                  "tools/match_linemod_template.py", "tools/obj_rec_ransac_accepted_hypotheses.py",
                  "tools/obj_rec_ransac_hash_table.py", "tools/obj_rec_ransac_model_opps.py",
-                 "tools/obj_rec_ransac_result.py", "tools/obj_rec_ransac_scene_opps.py"):
+                 "tools/obj_rec_ransac_result.py", "tools/obj_rec_ransac_scene_opps.py",
+                 "ml/svm.py", "ml/svm_prob.py", "ml/svm_io.py", "ml/permutohedral.py",
+                 "ml/densecrf.py", "people/__init__.py", "people/hog.py",
+                 "people/classifier.py", "people/detector.py", "keypoints/corners2d.py",
+                 "tracking/__init__.py", "tracking/particle_filter.py", "tracking/kld.py",
+                 "tracking/klt.py", "tools/crf_segmentation.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -156,14 +166,13 @@ def _jax_exports(package: str):
     return out
 
 
-# the JAX modules left for later (ROADMAP items 21b, 22a and 22b), whose names
-# the port's packages do not export yet
+# the JAX modules left for later (ROADMAP items 22a and 22b), whose names the
+# port's packages do not export yet
 LEFT_FOR_LATER = {
     "features": ("pcl_tpu.features.organized_edge",),
-    "keypoints": ("pcl_tpu.keypoints.corners2d",),
+    "keypoints": (),
     "image": ("pcl_tpu.image.extractors",),
-    "ml": ("pcl_tpu.ml.svm", "pcl_tpu.ml.svm_prob", "pcl_tpu.ml.svm_io", "pcl_tpu.ml.densecrf",
-           "pcl_tpu.ml.permutohedral"),
+    "ml": (),
 }
 
 
@@ -177,15 +186,11 @@ def test_features_and_keypoints_export_the_jax_names(package):
         "features": ["organized_edge_detection", "edge_label_indices", "EDGELABEL_NAN_BOUNDARY",
                      "EDGELABEL_OCCLUDING", "EDGELABEL_OCCLUDED", "EDGELABEL_HIGH_CURVATURE",
                      "EDGELABEL_RGB_CANNY"],
-        "keypoints": ["agast_keypoints", "brisk_keypoints", "brisk_descriptor",
-                      "trajkovic_keypoints", "agast_score", "trajkovic_score"],
+        "keypoints": [],
         "image": ["extract_normal_image", "extract_rgb_image", "extract_label_image",
                   "extract_z_image", "extract_curvature_image", "extract_intensity_image",
                   "bearing_angle_image"],
-        "ml": ["PlattScaling", "platt_calibrate", "platt_probability", "svm_train_probability",
-               "svm_predict_probability", "svm_cross_validation", "SVMModel", "svm_train",
-               "svm_classify", "svm_train_dual", "svm_classify_dual", "load_libsvm_model",
-               "save_libsvm_model", "load_libsvm_probability", "DenseCRF"]}[package]
+        "ml": []}[package]
     port = importlib.import_module(f"pcl_tpu_torch.{package}")
     assert port.__all__ == [n for n, mod in names if mod not in LEFT_FOR_LATER[package]]
     assert all(hasattr(port, n) for n in port.__all__)
@@ -236,6 +241,21 @@ def test_surface_exports_the_jax_names():
     _exports_all("surface")
 
 
+@pytest.mark.parametrize("package", ["people", "tracking"])
+def test_people_and_tracking_export_the_jax_names(package):
+    """Every module of ``people/`` and ``tracking/`` is ported: ``__all__``
+    is every name the JAX package's ``__init__`` imports, in its order; the
+    trackers' samplers and cores are there too (C17)."""
+    port = importlib.import_module(f"pcl_tpu_torch.{package}")
+    assert port.__all__ == [n for n, _ in _jax_exports(package)]
+    assert all(hasattr(port, n) for n in port.__all__)
+    if package == "tracking":
+        from pcl_tpu_torch.tracking import kld, particle_filter
+        assert all(callable(f) for f in (particle_filter.draw_tracker_step,
+                                         particle_filter.step_tracker_core,
+                                         kld.draw_kld_step, kld.step_tracker_kld_core))
+
+
 def test_recognition_exports_the_jax_names():
     """Every module of ``recognition/`` is ported: ``__all__`` is every name
     ``pcl_tpu/recognition/__init__.py`` imports, in its order; the modules'
@@ -251,13 +271,14 @@ def test_recognition_exports_the_jax_names():
 
 
 def test_ml_exports_kmeans_as_a_sampler_and_a_core():
-    """``ml`` exports ``kmeans`` first (the trees follow, the rest waits for
-    ROADMAP item 21b); its draw is a sampler beside a core that takes the
-    drawn indices (C17)."""
+    """``ml`` exports ``kmeans`` first; its draw, and the RBF primal SVM's,
+    is a sampler beside a core that takes the drawn indices (C17)."""
     ml = importlib.import_module("pcl_tpu_torch.ml")
     km = importlib.import_module("pcl_tpu_torch.ml.kmeans")
+    svm = importlib.import_module("pcl_tpu_torch.ml.svm")
     assert ml.__all__[0] == "kmeans" and ml.kmeans is km.kmeans
     assert callable(km.kmeans_init_indices) and callable(km.kmeans_core)
+    assert callable(svm.svm_basis_indices) and callable(svm.svm_train_core)
 
 
 def test_scan_sees_forbidden_imports(tmp_path):
@@ -296,13 +317,23 @@ def test_scan_sees_forbidden_imports(tmp_path):
     lambda: tlm.detect_templates([np.zeros((4, 4, 8), bool)], []),
     lambda: tism.cluster_init_indices(4, 2),
     lambda: tgp.train_global_database({"a": np.ones((20, 3), np.float32)}),
+    lambda: interop.svm_model_from_arrays("linear", np.ones(2), 0.0, np.zeros((0, 2)), 0.0,
+                                          np.zeros(2), np.ones(2)),
+    lambda: tml.DenseCRF(4, 2),
+    lambda: tperm.PermutohedralFilter(np.zeros((4, 2), np.float32)),
+    lambda: ttracking.init_tracker(8),
+    lambda: ttracking.init_kld_tracker(8),
+    lambda: ttracking.pyramidal_klt(np.zeros((8, 8)), np.zeros((8, 8)), np.zeros((1, 2))),
+    lambda: tkeypoints.agast_keypoints(np.zeros((8, 8))),
 ], ids=["make_cloud", "from_numpy", "cloud_from_arrays", "hashgrid_from_arrays",
         "tsdf_volume_from_arrays", "make_volume", "build_edges_from_correspondences",
         "PoseGraph.optimize", "make_mesh", "initialize_multihost",
         "organized_connected_components", "organized_multi_plane_segmentation",
         "UnaryClassifier.train", "linear_octree_from_arrays", "range_image_from_arrays",
         "DoubleBufferedOctree.set_cloud", "build_modality_maps", "detect_templates",
-        "cluster_init_indices", "train_global_database"])
+        "cluster_init_indices", "train_global_database", "svm_model_from_arrays", "DenseCRF",
+        "PermutohedralFilter", "init_tracker", "init_kld_tracker", "pyramidal_klt",
+        "agast_keypoints"])
 def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -19,6 +19,7 @@ pixels (rounding decides them); there the port is held to the JAX tests' own
 bounds against the true plane.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ written by either package are read by the other, to the same arrays (exactly:
 both parse the same bytes with numpy; ascii bodies keep 9 significant digits,
 which round-trips float32)."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import io as pyio
 import struct
 

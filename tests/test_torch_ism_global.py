@@ -16,6 +16,7 @@ Tolerances:
   a database the JAX package saved loads in the port.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ masks wherever no decision lies within that of its threshold: the two ratio
 tests, ``l3 > 0``, and the non-max test against every neighbour's
 saliency."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

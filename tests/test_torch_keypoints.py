@@ -17,6 +17,7 @@ port the exact distance (C1), so snaps are compared where the nearest point
 beats the runner-up by 8 ulp of ``|q|^2 + |t|^2``.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

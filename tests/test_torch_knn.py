@@ -13,6 +13,7 @@ except where two listed distances lie within that tolerance of each other
 come in another order); the inputs hold no duplicated points.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

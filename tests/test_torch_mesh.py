@@ -12,6 +12,7 @@ package on the CPU.
   Hausdorff distance, and the 2-D curve's control points (no frame) to 1e-4.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax.numpy as jnp

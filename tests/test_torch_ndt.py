@@ -24,6 +24,7 @@ Tolerances, each measured and then fixed:
   counts are printed, not compared.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax.numpy as jnp

@@ -18,6 +18,7 @@ CPU.
   stop on the flat optimum 2e-3 apart; with seed 0 they agree bitwise.
   Iteration counts are not compared."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

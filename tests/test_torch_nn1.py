@@ -4,6 +4,7 @@ JAX package's CPU path (search/bruteforce.py). The CUDA kernel itself is
 compared with the plain version on the card (tests/test_torch_cuda.py and
 chip_smoke.py)."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import numpy as np
 import pytest
 import torch

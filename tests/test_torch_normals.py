@@ -9,6 +9,7 @@ viewpoint flip, so with their sign: n_port . n_jax >= 1 - 1e-5 on
 neighbourhoods with lambda1 - lambda0 > 1e-3 lambda2; curvature to 1e-5.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ origin) / res)`` give what XLA's give for NaN and for points at +-3e9 (XLA
 saturates, torch gives INT_MIN: ROADMAP C71).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,7 @@ Tolerances:
 - Template files: byte-equal, and each package reads the other's.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

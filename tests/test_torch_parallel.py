@@ -20,6 +20,7 @@ Tolerances:
   within 1e-4 pixel of a half pixel), otherwise 1e-6; raycast hits equal and
   vertices within 1e-5 m.
 """
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import json
 import os
 import subprocess

@@ -19,6 +19,7 @@ of a scan (``chip_smoke.py``'s street and path E's cut, 30,000-point scans,
   street with them) over two scans of 10,000 points: absolute poses to 1e-4,
   as ``tests/test_torch_trajectory.py`` holds ``odometry_sequence``."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 import math
 import sys

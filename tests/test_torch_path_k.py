@@ -25,6 +25,7 @@ own draws (ROADMAP C17).
   (``test_torch_ia``'s tolerances: C1 moves points across the gate).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 import sys
 from pathlib import Path

@@ -17,6 +17,7 @@ k-NN normals, the voxels with their normals, the wall's points and the seeds.
   (C61), equal.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 import sys
 from pathlib import Path

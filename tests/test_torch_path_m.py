@@ -17,6 +17,7 @@ on the card.
   keypoints equal, descriptors within 1e-6.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 import math
 import sys

@@ -21,6 +21,7 @@ package's draws (ROADMAP C17).
 - (g): the forest's detections equal (numpy on both sides).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 import sys
 from pathlib import Path

@@ -10,6 +10,7 @@ takes no other); the JAX reader does so only for points, normals and
 colours.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@
 - ``ppf_core`` on the JAX package's own draws (ROADMAP C17) on
   tests/test_ppf.py's model: the same vote count and the pose to 1e-5."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ CPU: the slot hash bit for bit (negative and large bins, and more than 16
 dimensions, where the extra multipliers wrap in uint32), the tables
 exactly (sums of 0/1 weights), the similarity to 1e-6."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

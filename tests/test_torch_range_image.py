@@ -13,6 +13,7 @@ at 60 x 80 to 180 x 360 pixels.
   the lowest-index ``-inf`` pixels, C74) equal; descriptors within 1e-6.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib.util
 import math
 from pathlib import Path

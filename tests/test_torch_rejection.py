@@ -8,6 +8,7 @@ middle values (ROADMAP C16). The random rejectors run their core on the
 indices the JAX package draws for the same key (ROADMAP C17).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax

@@ -19,6 +19,7 @@ the threshold. LMedS runs on an even count of valid points, where the median
 averages the two middle values.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax

@@ -18,6 +18,7 @@ Tolerances:
   draws (C17, C61): centroids to 1e-5, labels equal.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import importlib
 
 import jax

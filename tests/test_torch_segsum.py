@@ -9,6 +9,7 @@ Accuracy and Stability, 4.2); ``_tol`` uses that, and never less than
 1e-6 sum|v|. Which rows are live and the voxel counts are compared exactly.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -16,6 +16,7 @@ rows: frames 1e-4, the interpolated descriptor 2e-5 (unit rows; measured
 rounded apart).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -22,6 +22,7 @@ Tolerances:
   decisions far from their cuts on these scenes).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

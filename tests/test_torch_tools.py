@@ -6,6 +6,7 @@ Poses of ``tools.odometry`` agree within 1e-3 m and 1e-3 in rotation entries
 NDT's runs may take other iterates to the same optimum); the downsampled and
 normal-estimated files hold the same points."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import numpy as np
 import pytest
 import torch

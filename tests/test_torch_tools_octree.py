@@ -6,6 +6,7 @@ voxel centres (the JAX tool lists them in set order, the port in cell
 order: compared as sorted rows) and counts; ``timed_trigger_test`` fires
 its trigger."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import re
 
 import numpy as np

@@ -14,6 +14,7 @@ beside the JAX package's tools on the same organized RGB PCD files.
   within the distance tolerance.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import re
 
 import numpy as np

@@ -11,6 +11,7 @@ which the MSE tests fire but not the fixed point; poses agree within 1e-4 m
 and 1e-4 in rotation entries.
 """
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

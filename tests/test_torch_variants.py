@@ -11,6 +11,7 @@ iteration at the same optimum). The incremental and meta accumulators are
 held to the JAX ones over three scans: poses 1e-4, the model's size
 exactly."""
 
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

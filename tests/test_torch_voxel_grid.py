@@ -14,6 +14,7 @@ on the CPU.
 - ``uniform_sample`` keeps input points: equal exactly (inputs without
   duplicated points, so no exact distance ties).
 """
+import torch_threads  # noqa: F401  (one torch thread a Tier-1 worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest
