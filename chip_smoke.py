@@ -182,7 +182,27 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    (e) pyramidal KLT of frame 0's 500 strongest AGAST corners over the
    sequence against the rendered flow, BRISK and Trajkovic on frame 0; the
    checks at 1.5 x the JAX package's CPU rehearsal; the chain on the card
-   against the CPU at 80 x 60; every B1 and B2 call held to its plain version.
+   against the CPU at 80 x 60; every B1 and B2 call held to its plain version
+   (B1 on the first 32,768 rows of each call);
+18. path P, PCL's stereo, organized-edge, image-extractor, range-likelihood
+   and mesh-conversion tools on path O's room at frame 0 (VGA): (a) a
+   rectified grey pair rendered from a left camera 0.05 m and 1 deg off the
+   Kinect and a right camera 0.12 m beside it, block matching and the
+   adaptive scanline matcher at 64 disparities against the true disparity,
+   the stereo cloud and its elevation map; (b) the stereo cloud's and the
+   Kinect cloud's 2 cm voxels (B2 twice) and point-to-point ICP on the brute
+   backend (B1 once an iteration) against the rig's offset; (c) organized
+   edges of all five types on the Kinect frame (gradient integral normals,
+   the render's classes as labels) against the clean depth's silhouettes,
+   every image extractor and the bearing-angle image through PNG and TIFF,
+   tools.pcd2png, png2pcd and tiff2pcd; (d) z-buffer renders of the frame's
+   cloud at 125 candidate poses scored by the range likelihood; (e)
+   half-edge meshes of the box, an icosphere, the capped cylinder and the
+   frame's organized mesh, the objects through PLY, OBJ, PCD, VTK and IFS by
+   the CLIs, mesh_sampling, mesh2pcd and virtual_scanner, the scans' 1 cm
+   voxels (B2) and their 1-NN to the true surfaces (B1); the checks at 1.5 x
+   the JAX package's CPU rehearsal; the chain on the card against the CPU at
+   80 x 60; every B1 and B2 call held to its plain version.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
@@ -191,7 +211,7 @@ from seed 7, path E's two scans of path C's street from seed 5, path F's route
 from seed 8, path G's room and camera from seed 9, path L's frame noise and
 colours from seed 10, path N's model renders from seed 11 and its objects'
 surfaces from seed 12, path O's sequence from seed 13 and its training windows from
-seed 14. Any failed check
+seed 14, path P's stereo pair and surface samples from seed 15. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -6307,19 +6327,21 @@ def o_shade(p: np.ndarray, n: np.ndarray, hit: np.ndarray, prims):
     return np.clip(rgb * shade[..., None], 0, 1), cls
 
 
-def o_render(t: float, intr, u: np.ndarray, v: np.ndarray, rng=None, people=True):
+def o_render(t: float, intr, u: np.ndarray, v: np.ndarray, rng=None, people=True, cam=None):
     """The camera's view at pixels ``(u, v)`` (any shape) at time ``t``:
     ``depth`` (range noise 1.5 mm x z^2 and 0.5% of the pixels dropped when
     ``rng`` is given; 0 where invalid), ``rgb`` (colour noise 0.03; the
     colour camera sees every surface, the depth's dropped pixels too), the
     true ``class`` of each pixel's surface (``O_CLASSES``; -1 where nothing
-    is hit), the clean camera-frame points ``xyz`` and ``valid`` depth."""
-    R = _o_rotation()
+    is hit), the clean camera-frame points ``xyz`` and ``valid`` depth.
+    ``cam`` is the camera's ``(rotation, centre)`` in the world (default
+    path O's Kinect: ``_o_rotation()`` at the origin)."""
+    R, c = (_o_rotation(), np.zeros(3)) if cam is None else cam
     d_cam = np.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy, np.ones(u.shape)], -1)
     prims = o_prims(t, people)
-    tt, n, hit = o_cast(np.zeros(3), d_cam @ R.T, prims)
+    tt, n, hit = o_cast(np.asarray(c, np.float64), d_cam @ R.T, prims)
     seen = np.isfinite(tt)
-    rgb, cls = o_shade((d_cam @ R.T) * np.where(seen, tt, 0)[..., None], n,
+    rgb, cls = o_shade(c + (d_cam @ R.T) * np.where(seen, tt, 0)[..., None], n,
                        np.where(seen, hit, -1000), prims)
     ok = seen & (tt < O_FAR)
     depth = np.where(ok, tt, 0.0)
@@ -6786,7 +6808,8 @@ def path_o_metrics(inp, out, O) -> dict:
     return m
 
 
-O_PLAIN_ROWS = 1 << 18      # B1's plain version on the first rows of a call (all of path O's)
+O_PLAIN_ROWS = 1 << 15      # B1's plain version on the first rows of a call (a row depends
+                            # on its own query alone)
 O_NEAR = 1e-4               # a resampling point this near a cumulative-weight edge may flip
 # limits: 1.5 x the JAX package's CPU rehearsal at full width (tests/rehearse_path_o.py jax,
 # on this sequence, the trackers against each frame's whole 2 cm voxel cloud): the shares as
@@ -7008,6 +7031,762 @@ def phase17_path_o(segsum, nn1_mod, record_b1, record_b2):
     return {"total_s": total, "peak_gib": peak, "parts": parts, "metrics": m}
 
 
+# ---------------------------------------------------------------------------
+# path P: PCL's stereo, organized-edge, image-extractor, range-likelihood and
+# mesh-conversion tools on path O's room at frame 0
+# ---------------------------------------------------------------------------
+
+P_SEED = 15                 # the stereo pair's colour noise and the surface samples
+P_LEFT = (0.05, 1.0)        # the left camera: m along the Kinect's x, deg about its y
+P_BASELINE = 0.12           # m from the left camera to the right along its x (Bumblebee2/ZED)
+P_FULL = dict(
+    shape=O_FULL["shape"], intr=O_FULL["intr"],
+    # (a): block_matching and adaptive_cost_so_matching at 64 disparities, the JAX
+    # defaults otherwise; the DEM at its defaults
+    max_disparity=64,
+    # (b): 2 cm voxels, point-to-point ICP on the brute backend
+    leaf=0.02, icp=dict(max_corr_dist=0.1, max_iterations=30),
+    # (d): the candidates, 5 x 5 x 5 steps about the true pose
+    steps=(0.02, 0.02, 0.5),
+    # (e): the icosphere's subdivisions, the cylinder's sides, the tools at their JAX
+    # defaults, the scans' voxels and the analytic surface samples
+    ico_levels=3, cyl_sides=48, sampling=[], mesh2pcd=[], scanner=[], scan_leaf=0.01,
+    surface_samples=200_000)
+# 80 x 60 for the CPU tests (tests/test_torch_path_p.py) and the card against the CPU:
+# disparities, voxels and the tools' views cut with the pixels
+P_SMALL = dict(
+    P_FULL, shape=O_SMALL["shape"], intr=O_SMALL["intr"], max_disparity=12, leaf=0.08,
+    ico_levels=2, cyl_sides=16, sampling=["-n_samples", "4000"],
+    mesh2pcd=["-n_views", "4", "-resolution", "32", "-dense_samples", "6000"],
+    scanner=["-n_views", "3", "-resolution", "24", "-dense_samples", "5000"], scan_leaf=0.04,
+    surface_samples=6000)
+P_OBJECTS = ("box", "sphere", "cylinder")
+
+
+def _p_rot_y(deg: float) -> np.ndarray:
+    a = math.radians(deg)
+    return np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0], [-math.sin(a), 0, math.cos(a)]])
+
+
+def p_left_in_kinect() -> np.ndarray:
+    """The left camera's pose in the Kinect's frame (4 x 4, camera to
+    Kinect): what (b)'s ICP recovers."""
+    T = np.eye(4)
+    T[:3, :3] = _p_rot_y(P_LEFT[1])
+    T[:3, 3] = (P_LEFT[0], 0.0, 0.0)
+    return T
+
+
+def p_box_mesh():
+    (x0, y0, z0), (x1, y1, z1) = O_BOX
+    v = np.array([[x, y, z] for x in (x0, x1) for y in (y0, y1) for z in (z0, z1)], np.float32)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    return v, np.array([t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))], np.int32)
+
+
+def p_sphere_mesh(levels: int):
+    """Path O's sphere as an icosphere: the icosahedron split ``levels``
+    times, its vertices pushed out to the sphere."""
+    p = (1 + 5 ** 0.5) / 2
+    v = [np.array(x, np.float64) for x in
+         [(-1, p, 0), (1, p, 0), (-1, -p, 0), (1, -p, 0), (0, -1, p), (0, 1, p), (0, -1, -p),
+          (0, 1, -p), (p, 0, -1), (p, 0, 1), (-p, 0, -1), (-p, 0, 1)]]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9), (5, 11, 4),
+         (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8),
+         (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    for _ in range(levels):
+        mid, nf = {}, []
+
+        def m(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                mid[key] = len(v)
+                v.append((v[a] + v[b]) / 2)
+            return mid[key]
+
+        for a, b, c in f:
+            ab, bc, ca = m(a, b), m(b, c), m(c, a)
+            nf += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        f = nf
+    v = np.array(v)
+    c, r = O_SPHERE
+    v = c + r * v / np.linalg.norm(v, axis=1, keepdims=True)
+    return v.astype(np.float32), np.array(f, np.int32)
+
+
+def p_cylinder_mesh(sides: int):
+    """Path O's capped cylinder: two rings of ``sides`` vertices, the side's
+    quads split in two, each cap a fan about its centre."""
+    (cx, cz), r, (y0, y1) = O_CYLINDER
+    a = 2 * np.pi * np.arange(sides) / sides
+    ring = np.stack([cx + r * np.cos(a), np.zeros(sides), cz + r * np.sin(a)], 1)
+    v = np.concatenate([ring + [0, y0, 0], ring + [0, y1, 0], [[cx, y0, cz], [cx, y1, cz]]])
+    f = []
+    for i in range(sides):
+        j = (i + 1) % sides
+        f += [(i, j, sides + i), (j, sides + j, sides + i), (2 * sides, j, i),
+              (2 * sides + 1, sides + i, sides + j)]
+    return v.astype(np.float32), np.array(f, np.int32)
+
+
+def p_surface_samples(n: int, rng) -> np.ndarray:
+    """``n`` points on the three objects' true surfaces (the box's faces,
+    the sphere, the cylinder's side and caps), each surface drawn in
+    proportion to its area."""
+    (x0, y0, z0), (x1, y1, z1) = O_BOX
+    dx, dy, dz = x1 - x0, y1 - y0, z1 - z0
+    (sc, sr), ((ccx, ccz), cr, (cy0, cy1)) = O_SPHERE, O_CYLINDER
+    areas = np.array([2 * dy * dz, 2 * dx * dz, 2 * dx * dy, 4 * np.pi * sr ** 2,
+                      2 * np.pi * cr * (cy1 - cy0), 2 * np.pi * cr ** 2])
+    k = rng.choice(6, size=n, p=areas / areas.sum())
+    u, w = rng.random(n), rng.random(n)
+    side = rng.integers(0, 2, n)
+    out = np.zeros((n, 3))
+    lo, hi = np.array(O_BOX[0]), np.array(O_BOX[1])
+    for axis in range(3):
+        on = k == axis
+        a, b = [i for i in range(3) if i != axis]
+        out[on, axis] = np.where(side[on] == 1, hi[axis], lo[axis])
+        out[on, a] = lo[a] + u[on] * (hi[a] - lo[a])
+        out[on, b] = lo[b] + w[on] * (hi[b] - lo[b])
+    on = k == 3
+    d = rng.normal(size=(on.sum(), 3))
+    out[on] = sc + sr * d / np.linalg.norm(d, axis=1, keepdims=True)
+    on = k == 4
+    out[on] = np.stack([ccx + cr * np.cos(2 * np.pi * u[on]), cy0 + w[on] * (cy1 - cy0),
+                        ccz + cr * np.sin(2 * np.pi * u[on])], 1)
+    on = k == 5
+    rr, th = cr * np.sqrt(u[on]), 2 * np.pi * w[on]
+    out[on] = np.stack([ccx + rr * np.cos(th), np.where(side[on] == 1, cy1, cy0),
+                        ccz + rr * np.sin(th)], 1)
+    return out.astype(np.float32)
+
+
+def p_clean_sheet(tris: np.ndarray, V: int):
+    """The organized mesh's triangles less those at vertices where two
+    boundary fans meet (a vertex that starts two boundary half-edges: the
+    half-edge builder then chains the holes ambiguously and its boundary
+    walk need not end, ROADMAP C94), removed in rounds until none is left.
+    Returns ``(kept triangles, rounds)``."""
+    tris = np.asarray(tris, np.int64)
+    for rounds in range(64):
+        e = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]])
+        key = e[:, 0] * V + e[:, 1]
+        twin = np.isin(e[:, 1] * V + e[:, 0], key)
+        # boundary half-edges run dst -> src of a half-edge without twin
+        starts = np.bincount(e[~twin, 1], minlength=V)
+        bad = starts > 1
+        if not bad.any():
+            return tris.astype(np.int32), rounds
+        tris = tris[~bad[tris].any(1)]
+    raise RuntimeError("p_clean_sheet did not settle")
+
+
+def path_p_inputs(P):
+    """Path P's host inputs: path O's frame 0 (the Kinect's noisy depth and
+    RGB, its points, the true classes and the clean depth), the rectified
+    grey pair (seed ``P_SEED``) with the left camera's true disparity, the
+    three objects' meshes and ``P["surface_samples"]`` points on their true
+    surfaces."""
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    intr = Intrinsics(*P["intr"])
+    H, W = P["shape"]
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    k = o_render(0.0, intr, u, v, np.random.default_rng(O_SEED))
+    xyz = np.stack([(u - intr.cx) / intr.fx * k["depth"], (v - intr.cy) / intr.fy * k["depth"],
+                    k["depth"]], -1).astype(np.float32)
+    rng = np.random.default_rng(P_SEED)
+    R_o = _o_rotation()
+    T = p_left_in_kinect()
+    R_l, c_l = R_o @ T[:3, :3], R_o @ T[:3, 3]
+    c_r = c_l + R_l @ np.array([P_BASELINE, 0.0, 0.0])
+    left = o_render(0.0, intr, u, v, rng, cam=(R_l, c_l))
+    right = o_render(0.0, intr, u, v, rng, cam=(R_l, c_r))
+    grey = [(255.0 * r["rgb"].mean(-1)).astype(np.float32) for r in (left, right)]
+    zl = left["xyz"][..., 2]
+    truth = np.where(zl > 0, intr.fx * P_BASELINE / np.where(zl > 0, zl, 1.0), -1.0)
+    meshes = {"box": p_box_mesh(), "sphere": p_sphere_mesh(P["ico_levels"]),
+              "cylinder": p_cylinder_mesh(P["cyl_sides"])}
+    return dict(intr=intr, xyz=xyz, valid=k["depth"] > 0, depth=k["depth"], rgb=k["rgb"],
+                grey=(255.0 * k["rgb"].mean(-1)).astype(np.float32), cls=k["cls"],
+                clean_z=k["xyz"][..., 2], left=grey[0], right=grey[1], disparity=truth,
+                meshes=meshes, surface=p_surface_samples(P["surface_samples"], rng))
+
+
+class PortP:
+    """Path P's calls on the port, on ``dev``: numpy in, numpy out, each
+    through the entry point a user calls. ``tests/rehearse_path_p.py`` has
+    the JAX package's ``JaxP`` with the same methods."""
+
+    def __init__(self, dev):
+        import pcl_tpu_torch.geometry as geometry
+        from pcl_tpu_torch.io import formats_extra, png, tiff
+
+        self.dev = torch.device(dev)
+        self.geometry, self.png, self.tiff, self.formats = geometry, png, tiff, formats_extra
+
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a), device=self.dev)
+
+    def block_matching(self, left, right, D):
+        from pcl_tpu_torch import stereo
+
+        return stereo.block_matching(self._t(left), self._t(right), max_disparity=D).cpu().numpy()
+
+    def adaptive(self, left, right, D):
+        from pcl_tpu_torch import stereo
+
+        return stereo.adaptive_cost_so_matching(self._t(left), self._t(right),
+                                                max_disparity=D).cpu().numpy()
+
+    def disparity_to_cloud(self, disp, f, b, u0, v0):
+        from pcl_tpu_torch import stereo
+
+        c = stereo.disparity_to_cloud(self._t(disp), f, b, u0, v0)
+        return c.xyz.cpu().numpy(), c.mask.cpu().numpy()
+
+    def dem(self, disp, grey, f, b, cx, cy):
+        from pcl_tpu_torch import stereo
+
+        h, n = stereo.disparity_to_dem(self._t(disp), self._t(grey), f, b, cx, cy)
+        return h.cpu().numpy(), n.cpu().numpy()
+
+    def voxel(self, xyz, leaf):
+        from pcl_tpu_torch import filters
+        from pcl_tpu_torch.core.cloud import make_cloud
+
+        return live_rows(filters.voxel_downsample(make_cloud(xyz, device=self.dev),
+                                                  leaf)).xyz.cpu().numpy()
+
+    def icp(self, src, tgt, **kw):
+        from pcl_tpu_torch.core.cloud import make_cloud
+        from pcl_tpu_torch.registration.icp import icp
+
+        r = icp(make_cloud(src, device=self.dev), make_cloud(tgt, device=self.dev),
+                corr_backend="brute", **kw)
+        return r.transform.cpu().numpy(), bool(r.converged), int(r.iterations)
+
+    def normals(self, xyz, valid):
+        from pcl_tpu_torch import features
+
+        n, c = features.integral_image_normals(self._t(xyz), self._t(valid), mode="gradient")
+        return n.cpu().numpy(), c.cpu().numpy()
+
+    def organized(self, xyz, valid, attrs):
+        from pcl_tpu_torch.core.cloud import make_cloud
+
+        H, W = valid.shape
+        return make_cloud(xyz.reshape(-1, 3), valid.reshape(-1),
+                          {k: a.reshape((H * W,) + a.shape[2:]) for k, a in attrs.items()},
+                          width=W, height=H, device=self.dev)
+
+    def edges(self, cloud):
+        from pcl_tpu_torch import features
+
+        labels = features.organized_edge_detection(cloud, edge_types=31).cpu().numpy()
+        return labels, features.edge_label_indices(labels)
+
+    def extract(self, name, cloud, **kw):
+        from pcl_tpu_torch import image
+
+        return getattr(image, name)(cloud, **kw)
+
+    def save_cloud(self, path, cloud):
+        from pcl_tpu_torch import io
+
+        io.save(path, cloud)
+
+    def tool(self, name, argv):
+        import importlib
+
+        with contextlib.redirect_stdout(pyio.StringIO()):
+            return importlib.import_module(f"pcl_tpu_torch.tools.{name}").main(
+                list(argv) + ["--device", self.dev.type])
+
+    def load_cloud(self, path):
+        """``(xyz [N, 3], mask)`` of a file, organized rows kept."""
+        from pcl_tpu_torch import io
+
+        c = io.load(path, device=self.dev)
+        return c.xyz.cpu().numpy(), c.mask.cpu().numpy()
+
+    def model(self, xyz):
+        from pcl_tpu_torch.core.cloud import make_cloud
+
+        return make_cloud(xyz, device=self.dev)
+
+    def render(self, model, pose, intr, H, W):
+        from pcl_tpu_torch import simulation
+
+        return simulation.render_depth(model, self._t(pose.astype(np.float32)), intr, H, W)
+
+    def likelihood(self, rendered, observed):
+        from pcl_tpu_torch import simulation
+
+        return float(simulation.range_likelihood(rendered, self._t(observed)))
+
+    def fast_mesh(self, cloud):
+        from pcl_tpu_torch import surface
+
+        return surface.organized_fast_mesh(cloud)
+
+    def save_mesh_ply(self, path, verts, tris):
+        from pcl_tpu_torch import io
+        from pcl_tpu_torch.core.cloud import make_cloud
+
+        io.save_ply(path, make_cloud(verts, device=self.dev), faces=tris)
+
+    def nn1(self, queries, targets):
+        from pcl_tpu_torch.search import bruteforce
+
+        t = self._t(targets)
+        idx, d2 = bruteforce.nn1(t, torch.ones(len(t), dtype=torch.bool, device=self.dev),
+                                 self._t(queries))
+        return idx.cpu().numpy(), d2.cpu().numpy()
+
+
+def p_grid_poses(steps):
+    """(d)'s 125 candidate poses (camera to Kinect): x and z steps of
+    ``steps[0]``, ``steps[1]`` m and yaw steps of ``steps[2]`` deg, five
+    each about the true pose (the identity), the true pose at index 62."""
+    out = []
+    for i in range(-2, 3):
+        for j in range(-2, 3):
+            for k in range(-2, 3):
+                T = np.eye(4)
+                T[:3, :3] = _p_rot_y(k * steps[2])
+                T[:3, 3] = (i * steps[0], 0.0, j * steps[1])
+                out.append(T)
+    return out
+
+
+def path_p_chain(inp, P, dev, lib=None, on_stage=None, normals=None):
+    """Path P's main path on ``lib`` (the port's ``PortP`` on ``dev`` by
+    default): (a) stereo, (b) the stereo cloud into the Kinect's frame by
+    ICP (B2 twice, B1 once an iteration), (c) organized edges, image
+    extractors and the image CLIs, (d) range likelihood over 125 candidate
+    poses, (e) half-edge meshes, the mesh and format CLIs, scans and their
+    surface error (B2, B1). ``normals`` (``(normals, curvature)``) replaces
+    (c)'s integral-image normals, so that a test can give both packages the
+    same ones (ROADMAP C26). Returns ``(out, seconds)``."""
+    dev = torch.device(dev)
+    lib = PortP(dev) if lib is None else lib
+    out, secs = {}, {}
+
+    def run(name, fn):
+        if on_stage is not None:
+            on_stage(name)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return r
+
+    intr = inp["intr"]
+    H, W = P["shape"]
+    f, D = intr.fx, P["max_disparity"]
+    # (a) stereo
+    out["bm"] = run("(a) block_matching", lambda: lib.block_matching(inp["left"], inp["right"], D))
+    out["ad"] = run("(a) adaptive_cost_so_matching", lambda: lib.adaptive(
+        inp["left"], inp["right"], D))
+    sxyz, smask = run("(a) disparity_to_cloud", lambda: lib.disparity_to_cloud(
+        out["bm"], f, P_BASELINE, intr.cx, intr.cy))
+    out["dem"] = run("(a) disparity_to_dem", lambda: lib.dem(out["bm"], inp["left"], f,
+                                                             P_BASELINE, intr.cx, intr.cy))
+    out["stereo_xyz"] = sxyz[smask]
+    # (b) the stereo cloud into the Kinect's frame
+    out["vox_stereo"] = run("(b) voxel grid (stereo)", lambda: lib.voxel(out["stereo_xyz"],
+                                                                         P["leaf"]))
+    out["vox_kinect"] = run("(b) voxel grid (Kinect)", lambda: lib.voxel(
+        inp["xyz"][inp["valid"]], P["leaf"]))
+    out["icp"] = run("(b) icp", lambda: lib.icp(out["vox_stereo"], out["vox_kinect"], **P["icp"]))
+    # (c) organized edges, the extractors and the image CLIs
+    nrm, curv = normals or run("(c) integral_image_normals",
+                               lambda: lib.normals(inp["xyz"], inp["valid"]))
+    out["normals"] = (nrm, curv)
+    attrs = dict(rgb=inp["rgb"], normal=nrm, curvature=curv, intensity=inp["grey"],
+                 label=inp["cls"].astype(np.int32))
+    cloud = lib.organized(inp["xyz"], inp["valid"], attrs)
+    out["labels"], out["label_idx"] = run("(c) organized_edge_detection",
+                                          lambda: lib.edges(cloud))
+    kinds = [("extract_normal_image", {}), ("extract_rgb_image", {}),
+             ("extract_label_image", {"color_mode": "mono"}),
+             ("extract_label_image", {"color_mode": "rgb_random"}),
+             ("extract_label_image", {"color_mode": "rgb_glasbey"}), ("extract_z_image", {}),
+             ("extract_curvature_image", {}), ("extract_intensity_image", {}),
+             ("bearing_angle_image", {})]
+    images = {f"{n}{kw.get('color_mode', '')}": run(f"(c) {n}", lambda n=n, kw=kw: lib.extract(
+        n, cloud, **kw)) for n, kw in kinds}
+    out["images"] = images
+    with tempfile.TemporaryDirectory() as tmp:
+        back = {}
+        for name, img in images.items():
+            p_png = os.path.join(tmp, name + ".png")
+            run("(c) PNG round trip", lambda: lib.png.save_png(p_png, img))
+            back[name + ".png"] = run("(c) PNG round trip", lambda: lib.png.load_png(p_png))
+            if img.dtype == np.uint16:
+                p_tif = os.path.join(tmp, name + ".tif")
+                run("(c) TIFF round trip", lambda: lib.tiff.save_tiff(p_tif, img))
+                back[name + ".tif"] = run("(c) TIFF round trip", lambda: lib.tiff.load_tiff(p_tif))
+        out["images_back"] = {k: bool(np.array_equal(v, images[k.rsplit(".", 1)[0]]))
+                              for k, v in back.items()}
+        pcd = os.path.join(tmp, "frame0.pcd")
+        lib.save_cloud(pcd, cloud)
+        for field in ("z", "rgb"):
+            run("(c) tools.pcd2png", lambda: lib.tool("pcd2png", [
+                pcd, os.path.join(tmp, f"cli_{field}.png"), "-field", field]))
+        out["cli_png_z"] = lib.png.load_png(os.path.join(tmp, "cli_z.png"))
+        out["cli_png_rgb"] = lib.png.load_png(os.path.join(tmp, "cli_rgb.png"))
+        run("(c) tools.png2pcd", lambda: lib.tool("png2pcd", [
+            os.path.join(tmp, "cli_z.png"), os.path.join(tmp, "png.pcd"), "-fx", str(intr.fx),
+            "-fy", str(intr.fy), "-cx", str(intr.cx), "-cy", str(intr.cy)]))
+        out["png2pcd"] = lib.load_cloud(os.path.join(tmp, "png.pcd"))
+        for sub, name in (("depth", "extract_z_image"), ("rgb", "extract_rgb_image")):
+            os.makedirs(os.path.join(tmp, sub))
+            lib.tiff.save_tiff(os.path.join(tmp, sub, "f0.tif"), images[name])
+        run("(c) tools.tiff2pcd", lambda: lib.tool("tiff2pcd", [
+            os.path.join(tmp, "depth"), os.path.join(tmp, "tiff_out"), "-rgb_dir",
+            os.path.join(tmp, "rgb"), "-focal", str(intr.fx), "-scale", "10000"]))
+        out["tiff2pcd"] = lib.load_cloud(os.path.join(tmp, "tiff_out", "frame_000000.pcd"))
+    # (d) range likelihood over 125 candidate poses
+    model = lib.model(inp["xyz"][inp["valid"]])
+    ll = []
+    for T in p_grid_poses(P["steps"]):
+        r = run("(d) render_depth", lambda: lib.render(model, T, intr, H, W))
+        ll.append(run("(d) range_likelihood", lambda: lib.likelihood(r, inp["depth"])))
+    out["ll"] = np.array(ll)
+    # (e) half-edge meshes, the mesh and format CLIs, scans
+    geo = lib.geometry
+    sheet_v, sheet_t = run("(e) organized_fast_mesh", lambda: lib.fast_mesh(cloud))
+    kept, rounds = run("(e) clean sheet (numpy)", lambda: p_clean_sheet(sheet_t, len(sheet_v)))
+    meshes = dict(inp["meshes"], sheet=(np.asarray(sheet_v, np.float32), kept))
+    out["sheet_faces"], out["sheet_rounds"] = (len(sheet_t), len(kept)), rounds
+    out["sheet_tris"] = kept
+    he = {}
+    for name, (v, t) in meshes.items():
+        m = run("(e) build_halfedge_mesh", lambda: geo.build_halfedge_mesh(v, t))
+        loops = run("(e) boundary_loops", lambda: geo.boundary_loops(m))
+        sample = np.unique(t[:: max(1, len(t) // 500)].reshape(-1))
+        rings = run("(e) vertex_one_ring", lambda: [geo.vertex_one_ring(m, int(i)) for i in sample])
+        fv = geo.to_face_vertex(m)
+        he[name] = dict(euler=int(geo.euler_characteristic(m)),
+                        manifold=bool(run("(e) is_manifold", lambda: geo.is_manifold(m))),
+                        loops=[np.asarray(x) for x in loops], ring_vertices=sample,
+                        rings=[np.asarray(x) for x in rings], faces_back=bool(
+                            np.array_equal(fv[1], t) and np.array_equal(fv[0], v)),
+                        n=(m.n_vertices, m.n_edges, m.n_faces), he_next=m.he_next)
+    out["he"] = he
+    with tempfile.TemporaryDirectory() as tmp:
+        trips = {}
+        for name in P_OBJECTS:
+            v, t = inp["meshes"][name]
+            ply = os.path.join(tmp, f"{name}.ply")
+            obj = os.path.join(tmp, f"{name}.obj")
+            lib.save_mesh_ply(ply, v, t)
+            run("(e) tools.ply2obj", lambda: lib.tool("ply2obj", [ply, obj]))
+            for tool, src, dst in (("obj2pcd", obj, f"{name}.pcd"), ("convert", obj, f"{name}_c.pcd"),
+                                   ("obj2vtk", obj, f"{name}.vtk"),
+                                   ("vtk2ply", f"{name}.vtk", f"{name}_v.ply"),
+                                   ("convert", ply, f"{name}.ifs")):
+                run(f"(e) tools.{tool}", lambda: lib.tool(tool, [os.path.join(tmp, src),
+                                                                os.path.join(tmp, dst)]))
+                trips[f"{tool} {dst}"] = lib.load_cloud(os.path.join(tmp, dst))[0]
+            ifs = os.path.join(tmp, f"{name}_mesh.ifs")
+            lib.formats.save_ifs(ifs, v, t)
+            iv, it = lib.formats.load_ifs(ifs)
+            trips[f"ifs {name}"] = (iv, it)
+            run("(e) tools.mesh_sampling", lambda: lib.tool("mesh_sampling", [
+                obj, os.path.join(tmp, f"{name}_s.pcd"), *P["sampling"]]))
+            run("(e) tools.mesh2pcd", lambda: lib.tool("mesh2pcd", [
+                obj, os.path.join(tmp, f"{name}_m.pcd"), *P["mesh2pcd"]]))
+            run("(e) tools.virtual_scanner", lambda: lib.tool("virtual_scanner", [
+                obj, os.path.join(tmp, f"{name}_vs.pcd"), *P["scanner"]]))
+            for k in ("s", "m", "vs"):
+                trips[f"{k} {name}"] = lib.load_cloud(os.path.join(tmp, f"{name}_{k}.pcd"))[0]
+        out["trips"] = trips
+    scans = np.concatenate([out["trips"][f"m {n}"] for n in P_OBJECTS])
+    out["scan_vox"] = run("(e) voxel grid (scans)", lambda: lib.voxel(scans, P["scan_leaf"]))
+    out["scan_nn"] = run("(e) nn1 to the surfaces", lambda: lib.nn1(out["scan_vox"],
+                                                                    inp["surface"]))
+    return out, secs
+
+
+def p_silhouettes(z: np.ndarray, th: float = 0.02) -> np.ndarray:
+    """The clean depth's discontinuities: pixels with a valid 8-neighbour
+    whose depth differs by more than ``th`` times theirs (the edge
+    detector's test)."""
+    H, W = z.shape
+    ok = z > 0
+    out = np.zeros((H, W), bool)
+    pad = np.pad(z, 1)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dx or dy:
+                nz = pad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                out |= ok & (nz > 0) & (np.abs(z - nz) > th * z)
+    return out
+
+
+def _p_dilate(m: np.ndarray) -> np.ndarray:
+    pad = np.pad(m, 1)
+    H, W = m.shape
+    return np.any([pad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W] for dy in (-1, 0, 1)
+                   for dx in (-1, 0, 1)], 0)
+
+
+def path_p_metrics(inp, out, P) -> dict:
+    """Path P's measures: the matchers' shares within 1 px of the true
+    disparity and left invalid, ICP's error against the rig's offset, the
+    edges against the clean silhouettes, the round trips, the likelihood's
+    winner and margin, the half-edge checks and the scans' surface error."""
+    H, W = P["shape"]
+    m = {}
+    truth = inp["disparity"]
+    has = truth > 0
+    for key in ("bm", "ad"):
+        d = out[key]
+        ok = has & (d >= 0)
+        m[f"{key}_within1"] = float(np.mean(np.abs(d[ok] - truth[ok]) <= 1.0)) if ok.any() else 0.0
+        m[f"{key}_invalid"] = float(np.mean(d[has] < 0))
+    m["stereo_points"] = len(out["stereo_xyz"])
+    m["dem_cells"] = int((out["dem"][1] > 0).sum())
+    m["voxels"] = [len(out["vox_stereo"]), len(out["vox_kinect"])]
+    T, conv, iters = out["icp"]
+    t_err, r_err = residual_motion(torch.as_tensor(np.array(T)), np.linalg.inv(p_left_in_kinect()))
+    m.update(icp_t_err=t_err, icp_r_err=r_err, icp_converged=conv, icp_iterations=iters)
+    lab = out["labels"].reshape(H, W)
+    occ = (lab & 6) > 0
+    sil = p_silhouettes(inp["clean_z"])
+    m["edge_recall"] = float(np.mean(_p_dilate(occ)[sil])) if sil.any() else 0.0
+    m["edge_false"] = float(np.mean(~_p_dilate(sil)[occ])) if occ.any() else 0.0
+    m["edge_counts"] = [int(((lab >> t) & 1).sum()) for t in range(5)]
+    m["label_idx_ok"] = all(np.array_equal(ix, np.flatnonzero((out["labels"] >> t) & 1))
+                            for t, ix in enumerate(out["label_idx"]))
+    m["images_back"] = all(out["images_back"].values()) and len(out["images_back"]) == 13
+    # the CLIs: the depth PNG in mm back through png2pcd, the 0.1 mm TIFF (which
+    # clips at 6.5535 m) through tiff2pcd; an organized PCD holds its invalid
+    # pixels as zeros, so a pixel is valid where its depth is above 0
+    z = inp["xyz"][..., 2].reshape(-1)
+    for key, top in (("png2pcd", 65.0), ("tiff2pcd", 6.5)):
+        xyz, mask = out[key]
+        ok = inp["valid"].reshape(-1) & (z < top)
+        m[f"{key}_z_err"] = float(np.abs(xyz[ok, 2] - z[ok]).max())
+        m[f"{key}_same_mask"] = bool(np.array_equal(mask & (xyz[:, 2] > 0),
+                                                    inp["valid"].reshape(-1)))
+    m["cli_png_z"] = bool(np.array_equal(out["cli_png_z"].reshape(-1), np.clip(
+        z * 1000.0, 0, 65535).astype(np.uint16)))
+    ll = out["ll"]
+    order = np.argsort(-ll, kind="stable")
+    m.update(ll_best=int(order[0]), ll_margin=float(ll[order[0]] - ll[order[1]]),
+             ll_runner_up=int(order[1]))
+    checks = {}
+    for name, h in out["he"].items():
+        t = out["sheet_tris"] if name == "sheet" else inp["meshes"][name][1]
+        e = np.sort(np.concatenate([t[:, [0, 1]], t[:, [1, 2]], t[:, [2, 0]]]), 1)
+        _, cnt = np.unique(e, axis=0, return_counts=True)
+        deg = np.bincount(np.unique(e, axis=0).reshape(-1), minlength=h["n"][0])
+        checks[name] = dict(euler=h["euler"], manifold=h["manifold"], loops=len(h["loops"]),
+                            loop_edges=int(sum(len(x) for x in h["loops"])),
+                            boundary_edges=int((cnt == 1).sum()), faces_back=h["faces_back"],
+                            rings=bool(all(len(r) == deg[i] for i, r in zip(h["ring_vertices"],
+                                                                            h["rings"]))),
+                            n=list(h["n"]))
+    m["he"] = checks
+    m["sheet_faces"], m["sheet_rounds"] = list(out["sheet_faces"]), out["sheet_rounds"]
+    trips_ok = {}
+    for name in P_OBJECTS:
+        v, t = inp["meshes"][name]
+        for key, got in out["trips"].items():
+            tool = key.split()[0]
+            if tool in ("obj2pcd", "convert", "obj2vtk", "vtk2ply") and name in key:
+                # OBJ and VTK text hold 6 significant digits
+                trips_ok[key] = bool(got.shape == v.shape and np.allclose(
+                    got, v, rtol=0, atol=1e-5 * float(np.abs(v).max())))
+        iv, it = out["trips"][f"ifs {name}"]
+        trips_ok[f"ifs {name}"] = bool(np.array_equal(iv, v) and np.array_equal(it, t))
+    m["trips"] = trips_ok
+    m["samples"] = {k: len(x) for k, x in out["trips"].items() if k.split()[0] in ("s", "m", "vs")}
+    d = np.sqrt(np.maximum(out["scan_nn"][1], 0.0))
+    m["scan_voxels"] = len(d)
+    m["scan_p99"] = float(np.percentile(d, 99)) if len(d) else math.inf
+    m["scan_median"] = float(np.median(d)) if len(d) else math.inf
+    return m
+
+
+P_PLAIN_ROWS = 1 << 15      # B1's plain version on the first rows of a call
+# limits: 1.5 x the JAX package's CPU rehearsal at full width (tests/rehearse_path_p.py jax,
+# on this frame and pair): errors as 1.5 x the rehearsal's, shares as 1.5 x their shortfall.
+# The rehearsal read block matching 0.37579 within 1 px and 0.55458 invalid, the adaptive
+# matcher 0.67937 and 0.091784, ICP 0.16890 m and 2.0759 deg off the rig's offset (integer
+# disparities do not register to the 0.05 m offset, ROADMAP C95), silhouette recall 1.0 with
+# 0.92311 of the occluding/occluded labels off every silhouette (range noise against the
+# 2% threshold; 1.5 x that share exceeds 1, so it is printed, not checked), the scans' p99
+# surface error 0.0043673 m
+P_LIMITS = dict(bm_within1=0.06368, bm_invalid=0.8319, ad_within1=0.5190, ad_invalid=0.1377,
+                icp_t_err=0.2534, icp_r_err=3.114, edge_recall=1.0, edge_false=None,
+                scan_p99=0.006551)
+
+
+def p_checks(m, lim, expect):
+    """Path P's checks: the exact ones always, the measured ones against
+    ``lim`` (a limit of None is printed, not checked)."""
+    printed = []
+
+    def hold(ok, limit, what):
+        if limit is None:
+            printed.append(what)
+        else:
+            expect(ok, what)
+
+    for key in ("bm", "ad"):
+        L = lim[f"{key}_within1"]
+        hold(L is not None and m[f"{key}_within1"] >= L, L,
+             f"(a) {key}: {m[f'{key}_within1']:.5f} of the valid pixels within 1 px of the true "
+             f"disparity (limit {L})")
+        L = lim[f"{key}_invalid"]
+        hold(L is not None and m[f"{key}_invalid"] <= L, L,
+             f"(a) {key}: {m[f'{key}_invalid']:.5f} of the pixels left invalid (limit {L})")
+    expect(m["dem_cells"] > 0, "(a) the DEM holds no cell")
+    expect(m["icp_converged"], f"(b) ICP did not converge in {m['icp_iterations']} iterations")
+    for key, unit in (("icp_t_err", "m"), ("icp_r_err", "deg")):
+        L = lim[key]
+        hold(L is not None and m[key] <= L, L,
+             f"(b) ICP's {key[4]} error against the rig's offset {m[key]:.5f} {unit} (limit {L})")
+    L = lim["edge_recall"]
+    hold(L is not None and m["edge_recall"] >= L, L,
+         f"(c) {m['edge_recall']:.5f} of the true silhouette pixels labelled occluding or "
+         f"occluded within 1 px (limit {L})")
+    L = lim["edge_false"]
+    hold(L is not None and m["edge_false"] <= L, L,
+         f"(c) {m['edge_false']:.5f} of the occluding/occluded pixels off every silhouette "
+         f"(limit {L})")
+    expect(m["label_idx_ok"], "(c) edge_label_indices differ from the labels")
+    expect(m["images_back"], "(c) an extractor's image does not read back bit for bit")
+    expect(m["cli_png_z"], "(c) tools.pcd2png's depth PNG is not the depth in mm")
+    expect(m["png2pcd_same_mask"] and m["png2pcd_z_err"] <= 0.001,
+           f"(c) tools.png2pcd: depth off by {m['png2pcd_z_err']} m (the PNG holds mm)")
+    expect(m["tiff2pcd_same_mask"] and m["tiff2pcd_z_err"] <= 0.0001,
+           f"(c) tools.tiff2pcd: depth off by {m['tiff2pcd_z_err']} m (the TIFF holds 0.1 mm)")
+    expect(m["ll_best"] == 62, f"(d) the likelihood's best pose is candidate {m['ll_best']}, "
+                               f"not the true pose (62)")
+    for name, c in m["he"].items():
+        closed = name != "sheet"
+        expect(c["faces_back"] and c["rings"] and c["manifold"]
+               and c["loop_edges"] == c["boundary_edges"]
+               and (not closed or (c["euler"] == 2 and c["loops"] == 0)),
+               f"(e) half-edge mesh of the {name}: {c}")
+    expect(all(m["trips"].values()), f"(e) round trips: {m['trips']}")
+    L = lim["scan_p99"]
+    hold(L is not None and m["scan_p99"] <= L, L,
+         f"(e) the scans' p99 surface error {m['scan_p99']:.5f} m (limit {L})")
+    return printed
+
+
+def p_card_vs_cpu(expect, card=None):
+    """Path P's chain on the card against the port's CPU run at 80 x 60.
+    Returns lines to print."""
+    card = torch.device("cuda") if card is None else card
+    P = P_SMALL
+    small = path_p_inputs(P)
+    a, b = (path_p_chain(small, P, d)[0] for d in (card, torch.device("cpu")))
+    lines = []
+    same = {k: float(np.mean(a[k] == b[k])) for k in ("bm", "ad")}
+    dem_same = bool(np.array_equal(a["dem"][1], b["dem"][1]))
+    dem_gap = float(np.abs(a["dem"][0] - b["dem"][0]).max())
+    expect(min(same.values()) >= 0.99 and dem_same and dem_gap <= 1e-5,
+           f"(card vs CPU) (a) disparities equal on {same}, DEM counts equal {dem_same}, "
+           f"heights by {dem_gap}")
+    tgap = float(np.abs(a["icp"][0] - b["icp"][0]).max())
+    expect(tgap <= 1e-4 and len(a["vox_stereo"]) == len(b["vox_stereo"]),
+           f"(card vs CPU) (b) ICP by {tgap}, voxels {len(a['vox_stereo'])} / "
+           f"{len(b['vox_stereo'])}")
+    lab = float(np.mean(a["labels"] == b["labels"]))
+    img = {k: int(np.abs(a["images"][k].astype(int) - b["images"][k].astype(int)).max())
+           for k in a["images"]}
+    expect(lab >= 0.99 and max(img.values()) <= 1 and all(
+        v == 0 for k, v in img.items() if "normal" not in k and "bearing" not in k),
+           f"(card vs CPU) (c) labels equal on {lab:.4f}, images apart by {img}")
+    scale = float(np.abs(b["ll"]).max())
+    lgap = float(np.abs(a["ll"] - b["ll"]).max())
+    expect(lgap <= 1e-5 * scale and int(np.argmax(a["ll"])) == int(np.argmax(b["ll"])),
+           f"(card vs CPU) (d) likelihoods by {lgap} of {scale}, best {int(np.argmax(a['ll']))} / "
+           f"{int(np.argmax(b['ll']))}")
+    he_same = all(np.array_equal(a["he"][k]["he_next"], b["he"][k]["he_next"]) for k in b["he"])
+    n_scan = [len(a["scan_vox"]), len(b["scan_vox"])]
+    expect(he_same and abs(n_scan[0] - n_scan[1]) <= 0.02 * n_scan[1],
+           f"(card vs CPU) (e) half-edge meshes equal {he_same}, scan voxels {n_scan}")
+    lines.append(f"80 x 60 chain: disparities equal {same}, ICP {tgap:.1e}, labels {lab:.4f}, "
+                 f"images within {max(img.values())}, likelihood {lgap:.1e}, half-edge equal "
+                 f"{he_same}, scan voxels {n_scan}")
+    return lines
+
+
+def phase18_path_p(segsum, nn1_mod, record_b1, record_b2):
+    """Path P: PCL's stereo, organized-edge, image-extractor, range-likelihood
+    and mesh-conversion tools on path O's room at frame 0, at VGA."""
+    from pcl_tpu_torch.search import bruteforce
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 18: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    dev = torch.device("cuda")
+    P = P_FULL
+    inp, isecs = timed(lambda: path_p_inputs(P))
+    print(f"phase 18: inputs in {isecs:.1f} s: {int(inp['valid'].sum())} valid Kinect pixels, "
+          f"{int((inp['disparity'] > 0).sum())} pixels of true disparity "
+          f"{inp['disparity'][inp['disparity'] > 0].min():.2f}-"
+          f"{inp['disparity'].max():.2f} px, meshes "
+          + ", ".join(f"{k} {len(v[1])} faces" for k, v in inp["meshes"].items()), flush=True)
+    _, wsecs = timed(lambda: path_p_chain(path_p_inputs(P_SMALL), P_SMALL, dev))
+    print(f"phase 18: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.segment_sum_sorted.launches = 0
+    nn1_mod.nn1.launches = 0
+    with kernel_calls(bruteforce, segsum) as calls:
+        (out, secs), total = timed(lambda: path_p_chain(
+            inp, P, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
+    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["P"] = b1
+    record_b2["launches_by_path"]["P"] = b2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = card_line()
+    print(f"phase 18: path P in {total:.1f} s, peak memory {peak:.2f} GiB, launches nn1 {b1}, "
+          f"segsum {b2} [{card}]", flush=True)
+    for name, v in secs.items():
+        print(f"phase 18: {name}: {v * 1e3:.1f} ms [{card}]", flush=True)
+    parts = {p: sum(v for k, v in secs.items() if k.startswith(p))
+             for p in ("(a)", "(b)", "(c)", "(d)", "(e)")}
+    print("phase 18: by part " + ", ".join(f"{p} {v:.2f} s" for p, v in parts.items())
+          + f" [{card}]", flush=True)
+    iters = out["icp"][2]
+    expect(b2 == 3 and b1 == iters + 1,
+           f"path P launched B2 {b2} times (the stereo, Kinect and scan voxel grids: 3) and B1 "
+           f"{b1} times (ICP once an iteration, {iters}, and the scans' 1-NN once: {iters + 1})")
+    expect(len(calls["nn1"]) == b1 and len(calls["segsum"]) == b2,
+           "the kept kernel calls do not match the launch counts")
+    m = path_p_metrics(inp, out, P)
+    print("phase 18: metrics " + json.dumps(m, default=float), flush=True)
+    for what in p_checks(m, P_LIMITS, expect):
+        print(f"phase 18: printed, not checked: {what}", flush=True)
+    lines, csecs = timed(lambda: p_card_vs_cpu(expect))
+    print(f"phase 18: card against CPU ({csecs:.1f} s): " + "; ".join(lines), flush=True)
+    rows1, rows2 = hold_to_plain(calls, nn1_mod, segsum, expect, "phase 18:", P_PLAIN_ROWS, card,
+                                 time_once="stage")
+    record_b1["path_p"] = rows1
+    record_b2["path_p"] = rows2
+    check(not failed, "path P: " + "; ".join(failed))
+    return {"total_s": total, "peak_gib": peak, "parts": parts, "metrics": m}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -7089,13 +7868,16 @@ def main() -> int:
     lap("phase 16")
     out_o = phase17_path_o(segsum, nn1_mod, record, record_b2)
     lap("phase 17")
+    out_p = phase18_path_p(segsum, nn1_mod, record, record_b2)
+    lap("phase 18")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
         # H (the rest of registration), I (the sharded functions, one rank),
         # J (the filter front end), K (descriptors, keypoints, clusters),
         # L (surface reconstruction and segmentation), M (the octree, range
-        # images and NARF), N (recognition), O (people, CRF and tracking)
+        # images and NARF), N (recognition), O (people, CRF and tracking),
+        # P (stereo, organized edges, image extractors, meshes)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -7122,7 +7904,8 @@ def main() -> int:
           + f"; path L {out_l['total_s']:.1f} s, peak {out_l['peak_gib']:.2f} GiB"
           + f"; path M {out_m['total_s']:.2f} s, peak {out_m['peak_gib']:.2f} GiB"
           + f"; path N {out_n['total_s']:.1f} s, peak {out_n['peak_gib']:.2f} GiB"
-          + f"; path O {out_o['total_s']:.1f} s, peak {out_o['peak_gib']:.2f} GiB [{card}]",
+          + f"; path O {out_o['total_s']:.1f} s, peak {out_o['peak_gib']:.2f} GiB"
+          + f"; path P {out_p['total_s']:.1f} s, peak {out_p['peak_gib']:.2f} GiB [{card}]",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

@@ -1,7 +1,7 @@
 """Point-cloud features of pcl_tpu_torch (counterpart of ``pcl_tpu/features``).
 
-``__all__`` is the JAX package's list less the names of ``organized_edge``
-(which needs ``image/ops``), left for ROADMAP item 22b.
+``__all__`` is the names the JAX package's ``__init__`` imports, in its
+order.
 """
 
 from pcl_tpu_torch.features.normals import estimate_normals, flip_normals_towards_viewpoint
@@ -24,6 +24,10 @@ from pcl_tpu_torch.features.gasd import estimate_gasd, estimate_gasd_color
 from pcl_tpu_torch.features.integral_normals import integral_image_normals
 from pcl_tpu_torch.features.shape_context import estimate_3dsc, estimate_usc
 from pcl_tpu_torch.features.rops import estimate_rops, estimate_rops_mesh
+from pcl_tpu_torch.features.organized_edge import (
+    organized_edge_detection, edge_label_indices, EDGELABEL_NAN_BOUNDARY, EDGELABEL_OCCLUDING,
+    EDGELABEL_OCCLUDED, EDGELABEL_HIGH_CURVATURE, EDGELABEL_RGB_CANNY,
+)
 from pcl_tpu_torch.features.lrf import board_lrf, flare_lrf
 from pcl_tpu_torch.features.persistence import feature_persistence
 from pcl_tpu_torch.features.narf import (
@@ -43,7 +47,9 @@ __all__ = [
     "GRSD_BINS", "intensity_gradient", "intensity_spin", "rift", "estimate_cvfh",
     "estimate_our_cvfh", "estimate_crh", "crh_align", "ClusteredSignatures", "estimate_gasd",
     "estimate_gasd_color", "integral_image_normals", "estimate_3dsc", "estimate_usc",
-    "estimate_rops", "estimate_rops_mesh", "board_lrf", "flare_lrf", "feature_persistence",
+    "estimate_rops", "estimate_rops_mesh", "organized_edge_detection", "edge_label_indices",
+    "EDGELABEL_NAN_BOUNDARY", "EDGELABEL_OCCLUDING", "EDGELABEL_OCCLUDED",
+    "EDGELABEL_HIGH_CURVATURE", "EDGELABEL_RGB_CANNY", "board_lrf", "flare_lrf", "feature_persistence",
     "extract_borders", "narf_interest_image", "narf_keypoints", "narf_descriptors",
     "BorderDescription", "BORDER_NONE", "BORDER_OBSTACLE", "BORDER_SHADOW",
     "estimate_pfhrgb", "ppfrgb_features", "estimate_cppf",

@@ -1,8 +1,10 @@
 """Point-cloud file readers and writers.
 
 Counterpart of ``pcl_tpu/io/__init__.py``: ``load`` and ``save`` dispatch by
-extension. ``.pcd``, ``.ply``, ``.xyz`` and ``.txt`` are ported; the other
-formats of the JAX package raise until their modules are.
+extension (``.pcd``, ``.ply``, ``.xyz``/``.txt``, ``.obj``, ``.ifs``,
+``.vtk``). As in the JAX package, saving an ``.obj`` path imports a writer
+that ``io/obj.py`` does not define, and raises ``ImportError`` (ROADMAP
+C86); ``tools/ply2obj.py`` writes OBJ text itself.
 """
 
 from pcl_tpu_torch.io import lzf
@@ -10,20 +12,6 @@ from pcl_tpu_torch.io.pcd import load as load_pcd, save as save_pcd
 from pcl_tpu_torch.io.ply import load as load_ply, save as save_ply
 
 __all__ = ["load_pcd", "save_pcd", "load_ply", "save_ply", "lzf", "load", "save"]
-
-# formats the JAX package reads that the port does not yet: extension -> the
-# item of ROADMAP.md, queue A, that ports the module
-_NOT_PORTED = {".obj": "22 (io/obj.py)", ".ifs": "22 (io/formats_extra.py)",
-               ".vtk": "22 (io/formats_extra.py)"}
-
-
-def _not_ported(path) -> None:
-    p = str(path).lower()
-    for ext, item in _NOT_PORTED.items():
-        if p.endswith(ext):
-            raise ValueError(f"{ext} files are not ported yet (ROADMAP.md, queue A, "
-                             f"item {item}): {path}")
-    raise ValueError(f"unknown point-cloud file extension: {path}")
 
 
 def load(path, **kw):
@@ -37,7 +25,16 @@ def load(path, **kw):
     if p.endswith(".xyz") or p.endswith(".txt"):
         from pcl_tpu_torch.io.ascii import load as load_ascii
         return load_ascii(path, **kw)
-    _not_ported(path)
+    if p.endswith(".obj"):
+        from pcl_tpu_torch.io.obj import load as load_obj
+        return load_obj(path, **kw)
+    if p.endswith(".ifs"):
+        from pcl_tpu_torch.io.formats_extra import load_ifs_cloud
+        return load_ifs_cloud(path, device=kw.get("device"))
+    if p.endswith(".vtk"):
+        from pcl_tpu_torch.io.formats_extra import load_vtk_cloud
+        return load_vtk_cloud(path, device=kw.get("device"))
+    raise ValueError(f"unknown point-cloud file extension: {path}")
 
 
 def save(path, cloud, **kw):
@@ -49,4 +46,14 @@ def save(path, cloud, **kw):
     if p.endswith(".xyz") or p.endswith(".txt"):
         from pcl_tpu_torch.io.ascii import save as save_ascii
         return save_ascii(path, cloud, **kw)
-    _not_ported(path)
+    if p.endswith(".vtk") or p.endswith(".ifs"):
+        from pcl_tpu_torch.core.cloud import to_numpy
+        from pcl_tpu_torch.io import formats_extra
+
+        xyz, _ = to_numpy(cloud)
+        write = formats_extra.save_vtk if p.endswith(".vtk") else formats_extra.save_ifs
+        return write(path, xyz, **kw)
+    if p.endswith(".obj"):
+        from pcl_tpu_torch.io.obj import save as save_obj  # noqa: F401  (C86: raises)
+        return save_obj(path, cloud, **kw)
+    raise ValueError(f"unknown point-cloud file extension: {path}")

@@ -3,30 +3,27 @@
 
     python -m pcl_tpu_torch.tools.marching_cubes_reconstruction in.pcd out.ply [-method hoppe|rbf] [-grid_res 48] [-k 16] [--device cpu]
 
-Normals are estimated (k nearest) when the cloud has none. A ``.ply`` output
-holds the mesh, a ``.pcd`` output its vertices; ``.vtk`` and ``.ifs`` meshes
-wait for ROADMAP item 22.
+Normals are estimated (k nearest) when the cloud has none. A ``.ply``,
+``.vtk`` or ``.ifs`` output holds the mesh, a ``.pcd`` output its vertices.
 """
 import argparse
 import sys
 
-# mesh formats of the JAX tools that the port does not write yet
-_NOT_PORTED = (".vtk", ".ifs")
-
 
 def save_mesh(path, verts, tris) -> None:
-    """Write a mesh: ``.ply`` with its faces, ``.pcd`` its vertices only;
-    ``.vtk`` and ``.ifs`` raise (ROADMAP item 22, ``io/formats_extra.py``)."""
+    """Write a mesh: ``.ply``, legacy ``.vtk`` and ``.ifs`` with its faces,
+    ``.pcd`` its vertices only."""
     import numpy as np
 
     from pcl_tpu_torch import io
     from pcl_tpu_torch.core.cloud import make_cloud
+    from pcl_tpu_torch.io.formats_extra import save_ifs, save_vtk
 
     low = str(path).lower()
-    for ext in _NOT_PORTED:
-        if low.endswith(ext):
-            raise ValueError(f"{ext} meshes are not ported yet (ROADMAP.md, queue A, item 22 "
-                             f"(io/formats_extra.py)): {path}")
+    if low.endswith(".vtk"):
+        return save_vtk(path, np.asarray(verts), polygons=np.asarray(tris))
+    if low.endswith(".ifs"):
+        return save_ifs(path, np.asarray(verts), triangles=np.asarray(tris))
     cloud = make_cloud(np.asarray(verts, np.float32), device="cpu")
     if low.endswith(".ply"):
         io.save_ply(path, cloud, faces=np.asarray(tris, np.int32))
@@ -37,7 +34,7 @@ def save_mesh(path, verts, tris) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Marching-cubes style reconstruction")
     ap.add_argument("input")
-    ap.add_argument("output", help=".ply mesh or .pcd vertices")
+    ap.add_argument("output", help=".ply/.vtk/.ifs mesh or .pcd vertices")
     ap.add_argument("-method", choices=("hoppe", "rbf"), default="hoppe")
     ap.add_argument("-grid_res", type=int, default=48)
     ap.add_argument("-k", type=int, default=16, help="normal-estimation neighbors")

@@ -1,0 +1,17 @@
+"""CLI: obj2vtk converter (counterpart of ``pcl_tpu/tools/obj2vtk.py``;
+reference: tools/obj2vtk.cpp) — delegates to the extension-dispatching
+converter, ``tools.convert``.
+
+    python -m pcl_tpu_torch.tools.obj2vtk in.obj out.vtk [--ascii] [--device cpu]
+"""
+import sys
+
+from pcl_tpu_torch.tools.convert import main as _convert_main
+
+
+def main(argv=None):
+    return _convert_main(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

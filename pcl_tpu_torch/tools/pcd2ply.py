@@ -1,0 +1,17 @@
+"""CLI: pcd2ply converter (counterpart of ``pcl_tpu/tools/pcd2ply.py``;
+reference: tools/pcd2ply.cpp) — delegates to the extension-dispatching
+converter, ``tools.convert``.
+
+    python -m pcl_tpu_torch.tools.pcd2ply in.pcd out.ply [--ascii] [--device cpu]
+"""
+import sys
+
+from pcl_tpu_torch.tools.convert import main as _convert_main
+
+
+def main(argv=None):
+    return _convert_main(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,17 @@
+"""CLI: ply2ply converter (counterpart of ``pcl_tpu/tools/ply2ply.py``;
+reference: tools/ply2ply.cpp) — delegates to the extension-dispatching
+converter, ``tools.convert``.
+
+    python -m pcl_tpu_torch.tools.ply2ply in.ply out.ply [--ascii] [--device cpu]
+"""
+import sys
+
+from pcl_tpu_torch.tools.convert import main as _convert_main
+
+
+def main(argv=None):
+    return _convert_main(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

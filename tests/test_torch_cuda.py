@@ -1227,3 +1227,119 @@ def test_people_detector_grid_launches_b2_once(cuda):
     assert len(a) == len(b) == 1 and a[0].n_points == b[0].n_points
     np.testing.assert_allclose(a[0].centroid, b[0].centroid, atol=1e-5)
     assert abs(a[0].height - b[0].height) <= 1e-5
+
+
+def _stereo_pair(seed=10, H=60, W=96, d=6):
+    rng = np.random.default_rng(seed)
+    tex = rng.uniform(0, 255, (H, W + d)).astype(np.float32)
+    tex = (tex + np.roll(tex, 1, 1) + np.roll(tex, 1, 0)) / 3
+    return tex[:, d:].copy(), tex[:, :W].copy()      # left[x] = right[x - d]
+
+
+def test_stereo_cloud_icp_launches_b2_once_and_b1_an_iteration(cuda):
+    """Path P's (a) and (b) at a small size: both matchers' disparities on
+    the card equal the CPU run's; the stereo cloud's voxel grid is one B2
+    launch and brute ICP one B1 launch an iteration; the poses agree to
+    1e-4."""
+    from pcl_tpu_torch import stereo
+
+    left, right = _stereo_pair()
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        L, R = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+        bm = stereo.block_matching(L, R, max_disparity=12)
+        ad = stereo.adaptive_cost_so_matching(L, R, max_disparity=12)
+        cloud = stereo.disparity_to_cloud(bm, 60.0, 0.12)
+        b2 = segsum.segment_sum_sorted.launches
+        vox = filters.voxel_downsample(cloud, 0.02)
+        b2 = segsum.segment_sum_sorted.launches - b2
+        vox = vox.take(torch.nonzero(vox.mask)[:, 0])
+        tgt = vox.xyz.cpu().numpy() + np.float32([0.01, 0.0, 0.02])
+        b1 = nn1_mod.nn1.launches
+        r = icp(vox, make_cloud(tgt, device=dev), corr_backend="brute", max_iterations=10,
+                max_corr_dist=0.1)
+        b1 = nn1_mod.nn1.launches - b1
+        out[dev.type] = (bm.cpu().numpy(), ad.cpu().numpy(), b2, b1, int(r.iterations),
+                         r.transform.cpu().numpy())
+    a, b = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert a[2] == 1 and a[3] == a[4] >= 1
+    np.testing.assert_allclose(a[5], b[5], atol=1e-4)
+
+
+def test_scan_voxels_launch_b2_once_and_surface_nn1_b1_once(cuda, tmp_path):
+    """Path P's (e) at a small size: ``virtual_scanner``'s scans on the card
+    lie within 1e-5 m of the CPU run's (the z-buffers round apart only at a
+    half pixel); their voxel grid is one B2 launch and the 1-NN to the
+    surface samples one B1 launch, equal to the plain version."""
+    from pcl_tpu_torch.io import obj  # noqa: F401  (the OBJ reader on the card)
+    from pcl_tpu_torch.tools.virtual_scanner import scan_views
+
+    p = (1 + 5 ** 0.5) / 2
+    v = np.array([(-1, p, 0), (1, p, 0), (-1, -p, 0), (1, -p, 0), (0, -1, p), (0, 1, p),
+                  (0, -1, -p), (0, 1, -p), (p, 0, -1), (p, 0, 1), (-p, 0, -1), (-p, 0, 1)])
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9), (5, 11, 4),
+         (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8),
+         (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    path = tmp_path / "ico.obj"
+    path.write_text("".join(f"v {x} {y} {z}\n" for x, y, z in v * 0.2)
+                    + "".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f))
+    scans = {d.type: scan_views(str(path), 4, 48, 20000, device=d)
+             for d in (cuda, torch.device("cpu"))}
+    from scipy.spatial import cKDTree
+    dist, _ = cKDTree(scans["cpu"]).query(scans["cuda"])
+    assert abs(len(scans["cuda"]) - len(scans["cpu"])) <= 0.01 * len(scans["cpu"])
+    assert np.mean(dist <= 1e-5) >= 0.99
+    b2 = segsum.segment_sum_sorted.launches
+    vox = filters.voxel_downsample(make_cloud(scans["cuda"], device=cuda), 0.01)
+    assert segsum.segment_sum_sorted.launches - b2 == 1
+    vox = vox.take(torch.nonzero(vox.mask)[:, 0])
+    rng = np.random.default_rng(12)
+    s = rng.normal(size=(50000, 3))
+    r = 0.2 * np.sqrt(1 + p * p)                     # the icosahedron's circumradius
+    surf = torch.as_tensor((r * s / np.linalg.norm(s, axis=1, keepdims=True))
+                           .astype(np.float32), device=cuda)
+    m = torch.ones(len(surf), dtype=torch.bool, device=cuda)
+    b1 = nn1_mod.nn1.launches
+    idx, d2 = bruteforce.nn1(surf, m, vox.xyz)
+    assert nn1_mod.nn1.launches - b1 == 1
+    ip, dp = nn1_mod.nn1_plain(surf, m, vox.xyz)
+    assert torch.equal(idx, ip) and torch.equal(d2, dp)
+
+
+def test_render_depth_and_organized_edges_on_card_match_cpu(cuda):
+    """Path P's (c) and (d) at a small size: the z-buffer on the card equals
+    the CPU run's but where a point lies within 1e-4 px of a half pixel; the
+    organized edges' labels are equal; the likelihoods agree to 1e-5 of the
+    sum of their terms' magnitudes."""
+    from pcl_tpu_torch import simulation
+    from pcl_tpu_torch.features import organized_edge
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    rng = np.random.default_rng(13)
+    H, W = 48, 64
+    intr = Intrinsics(60.0, 60.0, 31.5, 23.5)
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    z = np.where((u > 20) & (u < 40) & (v > 10) & (v < 30), 1.5, 3.0)
+    z = z + rng.normal(scale=0.002, size=z.shape)
+    z[rng.random(z.shape) < 0.03] = 0.0
+    xyz = np.stack([(u - intr.cx) / intr.fx * z, (v - intr.cy) / intr.fy * z, z], -1)
+    xyz = xyz.astype(np.float32).reshape(-1, 3)
+    valid = z.reshape(-1) > 0
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (0.02, 0.0, -0.02)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        c = make_cloud(xyz, valid, width=W, height=H, device=dev)
+        r = simulation.render_depth(make_cloud(xyz[valid], device=dev),
+                                    torch.as_tensor(pose, device=dev), intr, H, W)
+        ll = float(simulation.range_likelihood(r, torch.as_tensor(z.astype(np.float32),
+                                                                  device=dev)))
+        out[dev.type] = (organized_edge.organized_edge_detection(c, edge_types=7).cpu().numpy(),
+                         r.cpu().numpy(), ll)
+    (la, ra, lla), (lb, rb, llb) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(la, lb)
+    assert ((la & 6) > 0).sum() > 50
+    assert np.mean(ra == rb) >= 0.99
+    assert abs(lla - llb) <= 1e-5 * H * W * 10

@@ -166,12 +166,12 @@ def _jax_exports(package: str):
     return out
 
 
-# the JAX modules left for later (ROADMAP items 22a and 22b), whose names the
-# port's packages do not export yet
+# the JAX modules left for later, whose names the port's packages do not
+# export yet: none since slice 14 (ROADMAP items 22a and 22b)
 LEFT_FOR_LATER = {
-    "features": ("pcl_tpu.features.organized_edge",),
+    "features": (),
     "keypoints": (),
-    "image": ("pcl_tpu.image.extractors",),
+    "image": (),
     "ml": (),
 }
 
@@ -179,21 +179,59 @@ LEFT_FOR_LATER = {
 @pytest.mark.parametrize("package", ["features", "keypoints", "image", "ml"])
 def test_features_and_keypoints_export_the_jax_names(package):
     """``__all__`` is the JAX package's names, in order, less those of the
-    modules left for later, which are listed here."""
+    modules left for later, which are listed here (none are left)."""
     names = _jax_exports(package)
     missing = [n for n, mod in names if mod in LEFT_FOR_LATER[package]]
-    assert missing == {
-        "features": ["organized_edge_detection", "edge_label_indices", "EDGELABEL_NAN_BOUNDARY",
-                     "EDGELABEL_OCCLUDING", "EDGELABEL_OCCLUDED", "EDGELABEL_HIGH_CURVATURE",
-                     "EDGELABEL_RGB_CANNY"],
-        "keypoints": [],
-        "image": ["extract_normal_image", "extract_rgb_image", "extract_label_image",
-                  "extract_z_image", "extract_curvature_image", "extract_intensity_image",
-                  "bearing_angle_image"],
-        "ml": []}[package]
+    assert missing == []
     port = importlib.import_module(f"pcl_tpu_torch.{package}")
     assert port.__all__ == [n for n, mod in names if mod not in LEFT_FOR_LATER[package]]
     assert all(hasattr(port, n) for n in port.__all__)
+
+
+@pytest.mark.parametrize("package", ["stereo", "simulation", "geometry"])
+def test_image_side_exports_the_jax_names(package):
+    """``stereo`` and ``simulation`` define no ``__all__`` in either package
+    and import the same public names in the same order; ``geometry.__all__``
+    is the JAX package's, in order."""
+    jax_mod = importlib.import_module(f"pcl_tpu.{package}")
+    port = importlib.import_module(f"pcl_tpu_torch.{package}")
+    assert _port_imports(package) == [n for n, _ in _jax_exports(package)]
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("_")  # noqa: E731
+                              and not isinstance(getattr(m, n), type(m)))
+    assert public(port) == public(jax_mod)
+    if package == "geometry":
+        assert port.__all__ == jax_mod.__all__
+        assert all(hasattr(port, n) for n in port.__all__)
+    else:
+        assert not hasattr(port, "__all__") and not hasattr(jax_mod, "__all__")
+
+
+def test_geometry_attribute_shadowing_is_the_jax_packages():
+    """Both packages bind ``geometry`` to ``core.geometry`` (and list it in
+    ``__all__``) until their ``geometry`` subpackage is imported, which
+    rebinds the attribute to the subpackage (ROADMAP C87). A fresh
+    interpreter, so that no other test's imports decide the order."""
+    code = """
+import importlib, json
+out = {}
+for pkg in ("pcl_tpu", "pcl_tpu_torch"):
+    top = importlib.import_module(pkg)
+    before = top.geometry.__name__
+    from_before = getattr(__import__(pkg, fromlist=["geometry"]), "geometry").__name__
+    sub = importlib.import_module(pkg + ".geometry")
+    out[pkg] = [before, from_before, top.geometry.__name__, sub.__name__,
+                "geometry" in top.__all__, hasattr(top.geometry, "build_halfedge_mesh")]
+print(json.dumps(out))
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    import json
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    for pkg in ("pcl_tpu", "pcl_tpu_torch"):
+        assert got[pkg] == [f"{pkg}.core.geometry", f"{pkg}.core.geometry", f"{pkg}.geometry",
+                            f"{pkg}.geometry", True, True]
 
 
 def _exports_all(package):
