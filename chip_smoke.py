@@ -202,7 +202,27 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    the CLIs, mesh_sampling, mesh2pcd and virtual_scanner, the scans' 1 cm
    voxels (B2) and their 1-NN to the true surfaces (B1); the checks at 1.5 x
    the JAX package's CPU rehearsal; the chain on the card against the CPU at
-   80 x 60; every B1 and B2 call held to its plain version.
+   80 x 60; every B1 and B2 call held to its plain version;
+19. path Q, PCL's grabbers, compression, out-of-core octree and viewers on a
+   drive through path C's street: (a) an HDL-32E at 10 Hz (72,000 rays a
+   revolution) and a VLP-16, cast in float64 on the card against the
+   street's analytic surfaces, 40 and 10 sweeps 1 m apart with 0.02 m range
+   noise, written into pcap files by ``encode_packet``; (b) both replayed by
+   ``PcapVelodyneGrabber`` through ``CloudIterator`` and ``frames()``,
+   ``tools.pcap_to_pcd`` and ``tools.hdl_grabber_example``; (c) path C's
+   front end on the HDL-32E sweeps (B2 once a sweep) against the golden
+   poses; (d) the sweeps moved by their poses into the flat and the
+   hierarchical out-of-core octree, box, frustum and tree queries against
+   numpy masks, the LOD sizes, the map's 0.2 m voxels (B2) and their 1-NN
+   to the street's dense samples (B1); (e) octree compression of every
+   sweep against the card's voxel centres, the range coder, organized
+   compression, median and average buffers over 30 VGA depth frames,
+   ``ImageGrabber``, ``TimGrabber`` on path H (i)'s planar scans as TiM571
+   telegrams and the image tools; (f) the HTML, ASCII, SVG and PGM views, a
+   ``Visualizer`` with a scripted pick, a ``LiveViewer`` on 127.0.0.1 and
+   the viewer tools (B2 twice, B1 once an ICP iteration); (g) the chain at
+   3 VLP-16 sweeps on the card against the CPU; every B1 and B2 call held to
+   its plain version.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
@@ -211,19 +231,23 @@ from seed 7, path E's two scans of path C's street from seed 5, path F's route
 from seed 8, path G's room and camera from seed 9, path L's frame noise and
 colours from seed 10, path N's model renders from seed 11 and its objects'
 surfaces from seed 12, path O's sequence from seed 13 and its training windows from
-seed 14, path P's stereo pair and surface samples from seed 15. Any failed check
+seed 14, path P's stereo pair and surface samples from seed 15, path Q's drive, noise
+and depth frames from seed 16. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
 and exits non-zero.
 """
 
+import base64
 import contextlib
+import hashlib
 import io as pyio
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -694,10 +718,13 @@ def phase1_nn1(nn1_mod, moved, tgt):
 
 
 def timed(fn):
-    torch.cuda.synchronize()
+    """``(fn(), seconds)``, the card synchronised either side (where there is
+    one: path Q's chain runs ``front_end`` on the CPU too)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -818,6 +845,78 @@ def phase3_path_b(src, tgt, M):
     return ms_iter
 
 
+def street_parts(alleys: bool = False):
+    """``make_street``'s surfaces: ``(ground height, quads, poles, pole
+    radius, pole height, cars)``; a quad is ``(origin, edge u, edge v)`` with
+    u and v along two axes (the ground, the facades and the alleys' walls
+    first, then five faces of each car), a pole its ``(x, z)``, a car its
+    box ``(lo, hi)``."""
+    g = -1.7
+    # planar patches: (origin, edge u, edge v)
+    quads = [((-20, g, 0), (40, 0, 0), (0, 0, 200))]
+    quads += [((s * 10, g, 0), (0, 12, 0), (0, 0, 200)) for s in (-1, 1)]
+    if alleys:
+        quads += [((s * 10, g, z0), (s * 10, 0, 0), (0, 12, 0))
+                  for s in (-1, 1) for z0 in range(12, 200, 12)]
+    cars = []
+    for i in range(10):
+        x0, z0 = (-4.9 if i % 2 else 3.1), 8.0 + 19.0 * i
+        lo, (dx, dy, dz) = np.array([x0, g, z0]), (1.8, 1.5, 4.5)
+        quads += [(lo + (0, dy, 0), (dx, 0, 0), (0, 0, dz)),          # roof
+                  (lo, (dx, 0, 0), (0, dy, 0)), (lo + (0, 0, dz), (dx, 0, 0), (0, dy, 0)),
+                  (lo, (0, dy, 0), (0, 0, dz)), (lo + (dx, 0, 0), (0, dy, 0), (0, 0, dz))]
+        cars.append((lo, lo + (dx, dy, dz)))
+    poles = [(s * 7.0, 5.0 + 10.0 * j) for s in (-1, 1) for j in range(20)]
+    return g, quads, poles, 0.15, 5.0, cars
+
+
+def street_hits(o: np.ndarray, d: np.ndarray, alleys: bool = False, dev="cpu"):
+    """Nearest hit of rays ``o + t d`` (``o [3]``, ``d [N, 3]``, the street's
+    frame) with ``make_street``'s surfaces, in float64 on ``dev``: ``(t,
+    part)`` as host arrays, ``t`` inf where nothing is hit, ``part`` 0 the
+    ground, 1 a facade or an alley's wall, 2 a car, 3 a pole, -1 nothing. The
+    cars are their boxes (a ray from outside enters through one of the five
+    faces ``make_street`` samples: the floor lies on the ground)."""
+    g, quads, poles, r, h, cars = street_parts(alleys)
+    n_planes = len(quads) - 5 * len(cars)
+    f64 = dict(dtype=torch.float64, device=dev)
+    o, d = torch.as_tensor(o, **f64), torch.as_tensor(d, **f64)
+    best = torch.full((len(d),), math.inf, **f64)
+    part = torch.full((len(d),), -1, dtype=torch.int64, device=dev)
+    safe = torch.where(d.abs() > 1e-12, d, 1e-12)
+
+    def take(t, ok, code):
+        ok = ok & (t > 1e-6) & (t < best)
+        best.copy_(torch.where(ok, t, best))
+        part.masked_fill_(ok, code)
+
+    for i, (q0, u, v) in enumerate(quads[:n_planes]):
+        axis = int(np.argmax(np.abs(np.cross(u, v))))
+        q0, u, v = (torch.as_tensor(np.asarray(a, float), **f64) for a in (q0, u, v))
+        t = (q0[axis] - o[axis]) / safe[:, axis]
+        rel = o - q0 + t[:, None] * d
+        a, b = rel @ u / (u @ u), rel @ v / (v @ v)
+        take(t, (a >= 0) & (a <= 1) & (b >= 0) & (b <= 1), 0 if i == 0 else 1)
+    lo = torch.as_tensor(np.array([c[0] for c in cars]), **f64)          # [C, 3]
+    hi = torch.as_tensor(np.array([c[1] for c in cars]), **f64)
+    inv = 1.0 / safe[:, None, :]                                        # [N, 1, 3]
+    t0, t1 = (lo - o) * inv, (hi - o) * inv                             # [N, C, 3]
+    t_in = torch.minimum(t0, t1).amax(-1)
+    t_out = torch.maximum(t0, t1).amin(-1)
+    t_in = torch.where(t_in < t_out, t_in, math.inf).amin(-1)
+    take(t_in, torch.isfinite(t_in), 2)
+    c = torch.as_tensor(np.array(poles, float), **f64)                  # [P, 2]: x, z
+    A = (d[:, 0] ** 2 + d[:, 2] ** 2)[:, None]
+    ox, oz = o[0] - c[:, 0], o[2] - c[:, 1]
+    B = d[:, :1] * ox + d[:, 2:] * oz
+    disc = B * B - A * (ox ** 2 + oz ** 2 - r * r)
+    t = (-B - torch.sqrt(torch.clamp(disc, min=0))) / torch.clamp(A, min=1e-12)
+    y = o[1] + t * d[:, 1:2]
+    t = torch.where((disc > 0) & (t > 1e-6) & (y >= g) & (y <= g + h), t, math.inf).amin(-1)
+    take(t, torch.isfinite(t), 3)
+    return best.cpu().numpy(), part.cpu().numpy()
+
+
 def make_street(seed: int = 0, n: int = SCENE_POINTS, alleys: bool = False) -> np.ndarray:
     """A KITTI-like street in the scanner's frame (z forward, y up, the
     sensor at the origin), points spread uniformly by area: a ground plane
@@ -827,21 +926,7 @@ def make_street(seed: int = 0, n: int = SCENE_POINTS, alleys: bool = False) -> n
     ``alleys`` the buildings stand apart: every 12 m a side wall runs 10 m back
     from either facade (12 m tall), a surface that faces along the street."""
     rng = np.random.default_rng(seed)
-    g = -1.7
-    # planar patches: (origin, edge u, edge v)
-    quads = [((-20, g, 0), (40, 0, 0), (0, 0, 200))]
-    quads += [((s * 10, g, 0), (0, 12, 0), (0, 0, 200)) for s in (-1, 1)]
-    if alleys:
-        quads += [((s * 10, g, z0), (s * 10, 0, 0), (0, 12, 0))
-                  for s in (-1, 1) for z0 in range(12, 200, 12)]
-    for i in range(10):
-        x0, z0 = (-4.9 if i % 2 else 3.1), 8.0 + 19.0 * i
-        lo, (dx, dy, dz) = np.array([x0, g, z0]), (1.8, 1.5, 4.5)
-        quads += [(lo + (0, dy, 0), (dx, 0, 0), (0, 0, dz)),          # roof
-                  (lo, (dx, 0, 0), (0, dy, 0)), (lo + (0, 0, dz), (dx, 0, 0), (0, dy, 0)),
-                  (lo, (0, dy, 0), (0, 0, dz)), (lo + (dx, 0, 0), (0, dy, 0), (0, 0, dz))]
-    poles = [(s * 7.0, 5.0 + 10.0 * j) for s in (-1, 1) for j in range(20)]
-    r_pole, h_pole = 0.15, 5.0
+    g, quads, poles, r_pole, h_pole, _ = street_parts(alleys)
     quad_area = [np.linalg.norm(np.cross(u, v)) for _, u, v in quads]
     area = np.array(quad_area + [2 * np.pi * r_pole * h_pole] * len(poles))
     which = rng.choice(len(area), size=n, p=area / area.sum())
@@ -4670,6 +4755,7 @@ def hold_to_plain(calls, nn1_mod, segsum, expect, tag, plain_rows, card, time_on
     rows1 = []
     by_shape = {}
     for stage, t_, m_, q_ in calls["nn1"]:
+        t_, m_, q_ = t_.contiguous(), m_.contiguous(), q_.contiguous()
         n = min(len(q_), plain_rows)
         ik, dk = nn1_mod.nn1(t_, m_, q_)
         ip, dp = nn1_mod.nn1_plain(t_, m_, q_[:n])
@@ -7787,6 +7873,911 @@ def phase18_path_p(segsum, nn1_mod, record_b1, record_b2):
     return {"total_s": total, "peak_gib": peak, "parts": parts, "metrics": m}
 
 
+# ---------------------------------------------------------------------------
+# path Q: an HDL-32E drive through path C's street, replayed from a pcap into
+# the front end, stored out of core, compressed and shown
+Q_SEED = 16                 # the drive's yaws, range noise and intensities, the depth frames' noise
+Q_SENSOR_H = 1.9            # m: the Velodyne above the ground
+Q_RANGE_NOISE = 0.02        # m: path C's range noise (sd)
+# the street's frame (y up, z along the street) to path Q's world (x across, y along
+# the street, z up): a rotation, so that the sensors' frames are right-handed with z up
+Q_M = np.array([[-1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, 1.0, 0.0]])
+Q_FULL = dict(
+    # (a): the captures, model -> (sweeps, blocks a revolution). HDL-32E at 10 Hz: a
+    # block every 0.16 deg, 72,000 rays a revolution (~695,000 points/s); VLP-16: a
+    # block every 0.4 deg, two firings of 16 lasers at the block's azimuth (the
+    # decoder's simplification), 28,800 rays
+    captures={"HDL32E": (40, 2250), "VLP16": (10, 900)}, drive="HDL32E",
+    start=60.0, step=1.0, yaw_deg=0.5,      # m along the street, m a sweep (36 km/h), sd deg
+    max_range=100.0,                        # m: the sensors' data-sheet range
+    # (d): the map's stores (PCL outofcore's defaults but the cell), the 0.2 m voxels and
+    # the street's dense samples for the surface error
+    # the flat store takes the drive four sweeps a call (each call rewrites every node
+    # it touches with its LODs), the tree twenty
+    ooc=dict(cell_size=0.5, split_depth=4, lod_levels=3), ooc_batch=4, hier_depth=6,
+    hier_batch=20, map_leaf=LEAF,
+    surface_points=SCENE_POINTS,
+    # (e): octree compression at 1 cm; 30 VGA depth frames of path G's room from a fixed
+    # camera, 5% dropouts, window 5; path H (i)'s planar scans as a TiM571 sends them
+    comp_res=0.01, frames=30, shape=G_SHAPE, intr=G_INTR, window=5, dropout=0.05,
+    tim_scans=H_PLANAR_SCANS,
+    # (f): registration_visualizer's iterations and stages, the live viewer's voxels
+    viewer=("-iters", "20", "-stages", "5"))
+# 3 VLP-16 sweeps of a street cut to 10 m of range, 80 x 60 frames: the CPU tests
+# (tests/test_torch_path_q.py) and the card against the CPU
+Q_SMALL = dict(Q_FULL, captures={"VLP16": (3, 900)}, drive="VLP16", max_range=10.0,
+               surface_points=20_000, frames=6, shape=(60, 80),
+               intr=(65.625, 65.625, 39.5, 29.5), tim_scans=2,
+               viewer=("-iters", "6", "-stages", "3"))
+Q_TIM_BLOCKS = 811          # TiM571: 811 samples over 270 deg
+Q_TIM_RANGE = 25.0          # m: the TiM571's range
+Q_TIM_HEIGHT = 0.8          # m above the ground: inside path H (i)'s band
+Q_TIM_HEADER = ("sRA LMDscandata 1 1 1291B11 0 0 AED5 AED7 FDB36397 FDB3779F 0 0 1 0 0 5DC "
+                "A2 0 1 DIST1 3F800000 00000000 FFF92230 D05")
+Q_BOX = ((-6.0, 10.0, -2.5), (6.0, 40.0, 4.0))          # m, in sweep 0's frame
+# a wedge ahead of sweep 0: |x| <= 0.4 y, 5 <= y <= 60, z <= 3 (inward planes n.x + d >= 0)
+Q_FRUSTUM = np.array([[1.0, 0.4, 0.0, 0.0], [-1.0, 0.4, 0.0, 0.0], [0.0, 1.0, 0.0, -5.0],
+                      [0.0, -1.0, 0.0, 60.0], [0.0, 0.0, -1.0, 3.0]])
+
+
+def q_sensor_poses(Q, n: int, rng) -> np.ndarray:
+    """``n`` sensor-to-world poses of the drive: along the street's centre
+    line from ``Q["start"]`` m, ``Q["step"]`` m apart, the sensor
+    ``Q_SENSOR_H`` above the ground, each yawed by a seeded N(0,
+    ``Q["yaw_deg"]``) deg."""
+    out = []
+    for k in range(n):
+        a = math.radians(rng.normal(0.0, Q["yaw_deg"]))
+        T = np.eye(4)
+        T[:3, :3] = [[math.cos(a), -math.sin(a), 0], [math.sin(a), math.cos(a), 0], [0, 0, 1]]
+        T[:3, 3] = (0.0, Q["start"] + Q["step"] * k, -1.7 + Q_SENSOR_H)
+        out.append(T)
+    return np.stack(out)
+
+
+def q_render_sweep(model: str, blocks: int, T: np.ndarray, max_range: float, rng, dev):
+    """One revolution of ``model`` at sensor pose ``T``: ``(distances [B, 32],
+    intensities [B, 32], azimuths [B] deg)``, distance 0 where a ray hits
+    nothing within ``max_range``, with ``Q_RANGE_NOISE`` on each range. The
+    rays are the decoder's (``velodyne.decode_packet``): laser l of block b
+    at azimuth ``360 b / blocks`` and the model's vertical angle."""
+    from pcl_tpu_torch.io import velodyne
+
+    az = np.arange(blocks) * (360.0 / blocks)
+    vert = (velodyne.HDL32_VERT_ANGLES if model == "HDL32E"
+            else np.tile(velodyne.VLP16_VERT_ANGLES, 2)).astype(np.float64)
+    a, v = np.radians(az)[:, None], np.radians(vert)[None, :]
+    d_s = np.stack(np.broadcast_arrays(np.cos(v) * np.sin(a), np.cos(v) * np.cos(a),
+                                       np.sin(v)), -1).reshape(-1, 3)
+    # sensor -> world -> the street's frame
+    t, part = street_hits(Q_M.T @ T[:3, 3], d_s @ (Q_M.T @ T[:3, :3]).T, dev=dev)
+    dist = t + rng.normal(0.0, Q_RANGE_NOISE, t.shape)
+    dist = np.where(np.isfinite(t) & (t <= max_range) & (dist > 0), dist, 0.0)
+    # intensity by surface: ground, facades, cars, poles
+    inten = np.array([0, 20, 60, 120, 200])[part + 1] + rng.integers(0, 20, t.shape)
+    return dist.reshape(blocks, 32), inten.reshape(blocks, 32), az
+
+
+def q_capture(model: str, n_sweeps: int, blocks: int, poses: np.ndarray, max_range: float,
+              rng, dev):
+    """Packets of ``n_sweeps`` revolutions and each sweep's returns as the
+    decoder yields them (sensor frame, float64, block-major, the 2 mm unit's
+    non-zero distances). Each revolution starts a new packet; its last packet
+    is padded with empty blocks (distance 0), which the decoder drops, since
+    the grabber splits sweeps only between packets."""
+    from pcl_tpu_torch.io import velodyne
+
+    vert = np.radians((velodyne.HDL32_VERT_ANGLES if model == "HDL32E"
+                       else np.tile(velodyne.VLP16_VERT_ANGLES, 2)).astype(np.float64))
+    packets, returns, rays = [], [], 0
+    for k in range(n_sweeps):
+        dist, inten, az = q_render_sweep(model, blocks, poses[k], max_range, rng, dev)
+        pad = -blocks % 12
+        dist = np.concatenate([dist, np.zeros((pad, 32))])
+        inten = np.concatenate([inten, np.zeros((pad, 32))])
+        az = np.arange(blocks + pad) * (360.0 / blocks)
+        # encode_packet rounds each distance with round(): Python floats (an
+        # object array) take it some ten times faster than numpy scalars, to
+        # the same bytes
+        obj_d, obj_i = dist.astype(object), inten.astype(object)
+        for p in range(len(az) // 12):
+            sl = slice(12 * p, 12 * p + 12)
+            packets.append(velodyne.encode_packet(az[sl], obj_d[sl], obj_i[sl]))
+        keep = np.round(dist / 0.002) > 0
+        a, v = np.radians(az)[:, None], vert[None, :]
+        pts = np.stack(np.broadcast_arrays(dist * np.cos(v) * np.sin(a),
+                                           dist * np.cos(v) * np.cos(a), dist * np.sin(v)), -1)
+        returns.append(pts[keep])
+        rays += blocks * 32
+    return packets, returns, rays
+
+
+def q_tim_log(n: int, dev):
+    """Path H (i)'s planar scans of the street with alleys as a TiM571 sends
+    them: scanner k at ``pose_matrix(H_PLANAR_STEP[0] k, H_PLANAR_STEP[1] k)``,
+    ``Q_TIM_HEIGHT`` above the ground, 811 beams over 270 deg from -45 deg
+    (the angles ``tim.parse_tim_packet`` gives them), each range rounded to
+    the mm (0: no return within ``Q_TIM_RANGE``). Returns the STX/ETX-framed
+    log and each scan's true returns ``[811, 3]`` (the scanner's frame: x
+    ahead, y across, z 0; NaN where nothing returns)."""
+    from pcl_tpu_torch.io import tim
+
+    ang = (tim.ANGLE_START + np.arange(Q_TIM_BLOCKS) * (tim.ANGLE_RANGE / Q_TIM_BLOCKS)
+           ).astype(np.float32).astype(np.float64)
+    d_cam = np.stack([np.sin(ang), np.zeros_like(ang), np.cos(ang)], 1)    # camera: z ahead
+    frames, truth = [], []
+    for k in range(n):
+        P = pose_matrix(H_PLANAR_STEP[0] * k, H_PLANAR_STEP[1] * k)
+        o = P[:3, :3] @ np.array([0.0, Q_TIM_HEIGHT - 1.7, 0.0]) + P[:3, 3]
+        t, _ = street_hits(o, d_cam @ P[:3, :3].T, alleys=True, dev=dev)
+        mm = np.where(t <= Q_TIM_RANGE, np.round(t * 1000.0), 0).astype(np.int64)
+        frames.append(Q_TIM_HEADER + f" {Q_TIM_BLOCKS:X} " + " ".join(f"{m:X}" for m in mm))
+        r = np.where(mm > 0, t, np.nan)
+        truth.append(np.stack([r * np.cos(ang), r * np.sin(ang), np.zeros_like(r)], 1))
+    return "\x02" + "\x03\x02".join(frames) + "\x03", truth
+
+
+def q_depth_frames(Q, rng):
+    """``Q["frames"]`` depth frames of path G's room from its first camera pose,
+    held still (the setting of a depth buffer): the clean render plus path G's
+    range noise, ``Q["dropout"]`` of the pixels dropped, each depth at the
+    centre of its mm (a Kinect reports mm). NaN where invalid."""
+    from pcl_tpu_torch.fusion import Intrinsics
+
+    H, W = Q["shape"]
+    clean, _ = render_depth(handheld(rng, 1)[0], Intrinsics(*Q["intr"]), H, W)
+    out = []
+    for _ in range(Q["frames"]):
+        d = clean + rng.normal(size=clean.shape) * G_NOISE * clean.astype(np.float64) ** 2
+        ok = (clean > 0) & (rng.random(clean.shape) >= Q["dropout"]) & (d > 0)
+        out.append(np.where(ok, (np.floor(d * 1000.0) + 0.5) / 1000.0, np.nan).astype(np.float32))
+    return out
+
+
+def path_q_inputs(Q, workdir: str, dev="cpu"):
+    """Path Q's host inputs, written under ``workdir``: each capture's pcap
+    with its true returns and sensor poses, the drive's golden poses (sweep
+    k into sweep 0's frame), the street's dense samples in sweep 0's frame,
+    the depth frames, and the TiM log with its true returns. The rays are
+    cast on ``dev``, in float64."""
+    rng = np.random.default_rng(Q_SEED)
+    inp = dict(captures={}, workdir=workdir)
+    for model, (n, blocks) in Q["captures"].items():
+        poses = q_sensor_poses(Q, n, rng)
+        packets, returns, rays = q_capture(model, n, blocks, poses, Q["max_range"], rng, dev)
+        path = os.path.join(workdir, f"{model}.pcap")
+        from pcl_tpu_torch.io import velodyne
+        velodyne.write_pcap(path, packets)
+        inp["captures"][model] = dict(pcap=path, returns=returns, poses=poses, rays=rays,
+                                      packets=len(packets))
+    poses = inp["captures"][Q["drive"]]["poses"]
+    inv0 = np.linalg.inv(poses[0])
+    inp["golden"] = np.stack([inv0 @ T for T in poses])
+    street = make_street(0, n=Q["surface_points"]) @ Q_M.T
+    inp["surface"] = (street @ inv0[:3, :3].T + inv0[:3, 3]).astype(np.float32)
+    inp["frames"] = q_depth_frames(Q, rng)
+    log, inp["tim_truth"] = q_tim_log(Q["tim_scans"], dev)
+    inp["tim_log"] = os.path.join(workdir, "tim.log")
+    with open(inp["tim_log"], "w") as f:
+        f.write(log)
+    return inp
+
+
+class PortQ:
+    """Path Q's calls on the port, on ``dev``: each through the entry point a
+    user calls, host arrays in and out where the call makes a cloud.
+    ``tests/rehearse_path_q.py`` has the JAX package's ``JaxQ`` with the same
+    methods."""
+
+    def __init__(self, dev):
+        from pcl_tpu_torch import visualization
+        from pcl_tpu_torch.io import (buffers, compression, organized_compression,
+                                      range_coder, velodyne)
+
+        self.dev = torch.device(dev)
+        self.vis, self.velodyne, self.buffers = visualization, velodyne, buffers
+        self.compression, self.range_coder = compression, range_coder
+        self.organized = organized_compression
+
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a), device=self.dev)
+
+    def cloud(self, xyz, attrs=None):
+        from pcl_tpu_torch.core.cloud import from_numpy
+
+        return from_numpy(np.asarray(xyz, np.float32), attrs, device=self.dev)
+
+    @staticmethod
+    def rows(c):
+        """``(xyz, intensity or None, device type)`` of a cloud's valid rows."""
+        m = c.mask
+        inten = c.attrs.get("intensity")
+        return (c.xyz[m].cpu().numpy(), None if inten is None else inten[m].cpu().numpy(),
+                c.xyz.device.type)
+
+    def grab(self, pcap, model, how):
+        """The capture's sweeps, pumped by ``CloudIterator`` (``how="iterator"``,
+        the pump thread joined after) or pulled by ``frames()``."""
+        from pcl_tpu_torch.io.grabber import CloudIterator
+
+        g = self.velodyne.PcapVelodyneGrabber(pcap, model=model, device=self.dev)
+        if how == "frames":
+            return list(g.frames())
+        out = list(CloudIterator(g))
+        thread = g._thread
+        g.stop()
+        check(thread is None or not thread.is_alive(), "the grabber's pump thread is alive")
+        return out
+
+    def front_end(self, sweeps):
+        """Path C's front end (``front_end``) on the sweeps: ``(voxels [list of
+        host arrays], poses, iterations, converged, truncated)``."""
+        clouds, poses, results = front_end(sweeps)
+        return ([live_rows(c).xyz.cpu().numpy() for c in clouds], poses,
+                [int(r.iterations) for r, _ in results], [bool(r.converged) for r, _ in results],
+                [bool(r.truncated) for r, _ in results])
+
+    def voxel(self, xyz, leaf):
+        from pcl_tpu_torch import filters
+
+        return live_rows(filters.voxel_downsample(self.cloud(xyz), leaf)).xyz.cpu().numpy()
+
+    def nn1(self, queries, targets):
+        from pcl_tpu_torch.search import bruteforce
+
+        t = self._t(targets)
+        idx, d2 = bruteforce.nn1(t, torch.ones(len(t), dtype=torch.bool, device=self.dev),
+                                 self._t(queries))
+        return idx.cpu().numpy(), d2.cpu().numpy()
+
+    def store(self, root, **kw):
+        from pcl_tpu_torch.outofcore import OutofcoreOctree
+
+        return OutofcoreOctree.create(root, device=self.dev, **kw)
+
+    def tree(self, root, bb_min, bb_max, max_depth):
+        from pcl_tpu_torch.outofcore import HierarchicalOutofcoreOctree
+
+        return HierarchicalOutofcoreOctree.create(root, bb_min, bb_max, max_depth=max_depth,
+                                                  device=self.dev)
+
+    def decompress(self, blob):
+        return self.compression.decompress_cloud(blob, device=self.dev).xyz.cpu().numpy()
+
+    def voxel_centres(self, sweep, res):
+        """The occupied voxels' centres as ``compress_cloud`` defines them (cells
+        from the sweep's least corner, the header's float32 resolution),
+        computed on the device in float64."""
+        xyz = sweep.xyz[sweep.mask]
+        origin = xyz.amin(0)
+        # a tensor divisor: CUDA divides by a host scalar as a product with
+        # its reciprocal, which rounds apart from numpy's quotient
+        res_t = torch.tensor(res, dtype=torch.float32, device=xyz.device)
+        cells = torch.unique(torch.floor((xyz - origin) / res_t).to(torch.int64), dim=0)
+        res32 = float(np.float32(res))
+        return ((cells.double() + 0.5) * res32 + origin.double()).float().cpu().numpy()
+
+    def save_cloud(self, path, sweep, data="binary_compressed"):
+        from pcl_tpu_torch.io import pcd
+
+        pcd.save(path, sweep, data=data)
+
+    def load_rows(self, path):
+        from pcl_tpu_torch import io
+
+        return self.rows(io.load(path, device=self.dev))
+
+    def image_grabber(self, folder, focal):
+        from pcl_tpu_torch.io.grabber import ImageGrabber
+
+        return [(c.xyz.cpu().numpy(), c.mask.cpu().numpy(), c.width, c.height,
+                 c.xyz.device.type) for c in ImageGrabber(folder, focal, device=self.dev).frames()]
+
+    def tim_frames(self, log):
+        """The log's scans through ``TimGrabber``'s pump: ``(scans, device types,
+        thread joined)``."""
+        from pcl_tpu_torch.io.tim import TimGrabber
+
+        g = TimGrabber(log, device=self.dev)
+        got = []
+        g.register_callback(got.append)
+        g.start()
+        t0 = time.perf_counter()
+        while g.is_running() and time.perf_counter() - t0 < 60.0:
+            time.sleep(0.005)
+        thread = g._thread
+        g.stop()
+        return ([c.xyz[c.mask].cpu().numpy() for c in got], [c.xyz.device.type for c in got],
+                thread is not None and not thread.is_alive())
+
+    def organized_mesh(self, xyz_img, valid):
+        from pcl_tpu_torch import surface
+        from pcl_tpu_torch.core.cloud import make_cloud
+
+        H, W = valid.shape
+        v, t = surface.organized_fast_mesh(make_cloud(xyz_img.reshape(-1, 3), valid.reshape(-1),
+                                                      width=W, height=H, device=self.dev))
+        return np.asarray(v, np.float32), np.asarray(t)
+
+    def range_image(self, sweep):
+        """A sweep's spherical range image (720 x 360 at 0.5 deg) seen from a
+        sensor frame with z ahead (the sweep's y) and y up (its z)."""
+        from pcl_tpu_torch.core import range_image
+
+        pose = torch.tensor([[-1.0, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+                            device=self.dev)
+        return range_image.create_from_cloud(sweep, sensor_pose=pose).ranges.cpu().numpy()
+
+    def tool(self, name, argv):
+        import importlib
+
+        with contextlib.redirect_stdout(pyio.StringIO()) as out:
+            rc = importlib.import_module(f"pcl_tpu_torch.tools.{name}").main(
+                list(argv) + ["--device", self.dev.type])
+        return rc, out.getvalue()
+
+
+def _sha(path) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _tree_digest(root) -> dict:
+    return {os.path.relpath(os.path.join(d, f), root): _sha(os.path.join(d, f))
+            for d, _, files in os.walk(root) for f in files}
+
+
+def _row_set(a: np.ndarray) -> np.ndarray:
+    """Rows in lexicographic order (a set's canonical form)."""
+    a = np.asarray(a, np.float32).reshape(-1, 3)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def path_q_chain(inp, Q, dev, lib=None, on_stage=None, poses=None):
+    """Path Q's main path on ``lib`` (the port's ``PortQ`` on ``dev`` by
+    default): (b) the captures replayed through the Velodyne grabber, both
+    ways, pcap_to_pcd and hdl_grabber_example; (c) path C's front end on the
+    drive's sweeps (B2 once a sweep); (d) the sweeps moved by their poses
+    (``poses`` replaces the front end's, so that two runs can be given the
+    same map) into the flat and the hierarchical out-of-core octree, their
+    queries and LODs, the map's voxels (B2) and their 1-NN to the street
+    (B1); (e) octree compression of each sweep, the range coder, organized
+    compression, the depth buffers, the image and TiM grabbers and the image
+    CLIs; (f) the HTML, ASCII, SVG and PGM views, the Visualizer and the
+    live viewer, and the viewer CLIs (B2 twice, B1 once an ICP iteration).
+    Returns ``(out, seconds)``."""
+    dev = torch.device(dev)
+    lib = PortQ(dev) if lib is None else lib
+    out, secs = {}, {}
+
+    def run(name, fn):
+        if on_stage is not None:
+            on_stage(name)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return r
+
+    # one path for every run, so that the files' titles (a viewer's title names
+    # its inputs) are the same in two runs
+    work = os.path.join(inp["workdir"], "chain")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # (b) replay
+    sweeps = {}
+    for model, cap in inp["captures"].items():
+        it = run(f"(b) CloudIterator {model}", lambda: lib.grab(cap["pcap"], model, "iterator"))
+        fr = run(f"(b) frames {model}", lambda: lib.grab(cap["pcap"], model, "frames"))
+        rows_it = [lib.rows(c) for c in it]
+        rows_fr = [lib.rows(c) for c in fr]
+        out[f"sweeps {model}"] = [r[0] for r in rows_it]
+        out[f"intensity {model}"] = [r[1] for r in rows_it]
+        out[f"devices {model}"] = sorted({r[2] for r in rows_it + rows_fr})
+        out[f"both ways {model}"] = (len(it), len(fr), all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            for a, b in zip(rows_it, rows_fr)))
+        sweeps[model] = it
+    drive = Q["drive"]
+    pcap = inp["captures"][drive]["pcap"]
+    pre_p, pre_g = os.path.join(work, "p"), os.path.join(work, "g")
+    run("(b) tools.pcap_to_pcd", lambda: lib.tool("pcap_to_pcd", [pcap, pre_p, "-model", drive]))
+    run("(b) tools.hdl_grabber_example", lambda: lib.tool("hdl_grabber_example", [
+        pcap, "-model", drive, "-save", pre_g, "-timeout", "120"]))
+    n = len(sweeps[drive])
+    cli = [(lib.load_rows(f"{pre_p}_{k:03d}.pcd"), lib.load_rows(f"{pre_g}_{k:03d}.pcd"))
+           for k in range(n)]
+    out["cli sweeps"] = [a[0] for a, _ in cli]
+    out["cli same"] = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                          and np.array_equal(a[0], out[f"sweeps {drive}"][k])
+                          for k, (a, b) in enumerate(cli))
+    out["files"] = {f"sweep {k}": _sha(f"{pre_p}_{k:03d}.pcd") for k in range(n)}
+    # (c) odometry
+    vox, est, iters, conv, trunc = run("(c) front_end", lambda: lib.front_end(sweeps[drive]))
+    out["front voxels"], out["poses"] = vox, est
+    out["icp"] = dict(iterations=iters, converged=conv, truncated=trunc)
+    # (d) the map
+    use = est if poses is None else poses
+    # on the host in float64, so that two runs given the same poses store the
+    # same map bit for bit
+    moved = [run("(d) sweeps into the world", lambda: (
+        xyz.astype(np.float64) @ use[k][:3, :3].T + use[k][:3, 3]).astype(np.float32))
+        for k, xyz in enumerate(out[f"sweeps {drive}"])]
+    world = np.concatenate(moved)
+    out["map points"] = len(world)
+    lo = tuple(float(x) for x in np.floor(world.min(0)) - 1.0)
+    hi = tuple(float(x) for x in np.ceil(world.max(0)) + 1.0)
+    store = lib.store(os.path.join(work, "ooc"), origin=lo, **Q["ooc"])
+    ob = Q["ooc_batch"]
+    for k in range(0, len(moved), ob):
+        run("(d) OutofcoreOctree.add_cloud", lambda: store.add_cloud(lib.cloud(
+            np.concatenate(moved[k:k + ob]))))
+    keys = store.node_keys()
+    stored = lod_ok = 0
+    for key in keys:
+        rows = lib.rows(store.read_node(key))[0]
+        stored += len(rows)
+        for lv in range(Q["ooc"]["lod_levels"]):
+            got = len(lib.rows(store.read_node(key, lv))[0])
+            lod_ok += got == max(1, min(len(rows), store.meta["lod_points"] >> lv))
+    out["store"] = dict(nodes=len(keys), stored=stored, n_points=store.meta["n_points"],
+                        lod_ok=lod_ok, lod_files=len(keys) * Q["ooc"]["lod_levels"])
+    box = run("(d) query_box", lambda: lib.rows(store.query_box(*Q_BOX))[0])
+    fru = run("(d) query_frustum", lambda: lib.rows(store.query_frustum(Q_FRUSTUM))[0])
+    in_box = ((world >= Q_BOX[0]) & (world <= Q_BOX[1])).all(1)
+    in_fru = (world @ Q_FRUSTUM[:, :3].T + Q_FRUSTUM[None, :, 3] >= 0).all(1)
+    out["query box"] = (len(box), bool(np.array_equal(_row_set(box), _row_set(world[in_box]))))
+    out["query frustum"] = (len(fru), bool(np.array_equal(_row_set(fru),
+                                                          _row_set(world[in_fru]))))
+    tree = lib.tree(os.path.join(work, "hier"), lo, hi, Q["hier_depth"])
+    hb = Q["hier_batch"]
+    accepted = sum(run("(d) HierarchicalOutofcoreOctree.add_points", lambda: tree.add_points(
+        np.concatenate(moved[k:k + hb]))) for k in range(0, len(moved), hb))
+    run("(d) build_lod", lambda: tree.build_lod())
+    stats = tree.tree_stats()
+    lod_bad = 0
+    for d, meta in tree.depth_first():
+        if any(meta["children"]):
+            got = len(lib.load_rows(os.path.join(d, "lod.pcd"))[0])
+            lod_bad += got != min(max(1, int(meta["subtree_count"] * 0.125)), 4096)
+    bb = run("(d) query_bb_includes", lambda: lib.rows(tree.query_bb_includes(*Q_BOX))[0])
+    out["tree"] = dict(stats, accepted=accepted, lod_bad=lod_bad,
+                       centres=len(tree.get_occupied_voxel_centers(3)))
+    out["query bb"] = (len(bb), bool(np.array_equal(_row_set(bb), _row_set(world[in_box]))))
+    out["files"].update({f"ooc/{k}": v for k, v in _tree_digest(store.root).items()})
+    out["files"].update({f"hier/{k}": v for k, v in _tree_digest(tree.root).items()})
+    mvox = run("(d) voxel grid (map)", lambda: lib.voxel(world, Q["map_leaf"]))
+    out["map voxels"] = mvox
+    out["surface nn"] = run("(d) nn1 to the street", lambda: lib.nn1(mvox, inp["surface"]))
+    # (e) streams and compression
+    comp = []
+    for k, s in enumerate(sweeps[drive]):
+        blob = run("(e) compress_cloud", lambda: lib.compression.compress_cloud(
+            s, Q["comp_res"]))
+        back = run("(e) decompress_cloud", lambda: lib.decompress(blob))
+        ref = run("(e) voxel centres (device)", lambda: lib.voxel_centres(s, Q["comp_res"]))
+        binary = os.path.join(work, "binary.pcd")
+        lib.save_cloud(binary, lib.cloud(out[f"sweeps {drive}"][k]), data="binary")
+        comp.append((len(blob), os.path.getsize(binary), len(back),
+                     bool(np.array_equal(_row_set(back), _row_set(ref)))))
+        if k == 0:
+            out["blob 0"] = hashlib.sha256(blob).hexdigest()
+    out["compression"] = comp
+    xyz0 = out[f"sweeps {drive}"][0]
+    origin = xyz0.min(axis=0)
+    cells = np.floor((xyz0 - origin) / Q["comp_res"]).astype(np.uint64)
+    depth = max(1, int(np.ceil(np.log2(max(float(cells.max()) + 1, 2)))))
+    stream = lib.compression._encode_bitmasks(np.unique(lib.compression._morton_np(cells, depth)),
+                                              depth)
+    coded = run("(e) range_coder.encode", lambda: lib.range_coder.encode(stream))
+    decoded = run("(e) range_coder.decode", lambda: lib.range_coder.decode(coded, len(stream)))
+    out["range coder"] = (len(stream), len(coded), decoded == stream,
+                          hashlib.sha256(coded).hexdigest())
+    frames = inp["frames"]
+    H, W = Q["shape"]
+    f0 = np.nan_to_num(frames[0], nan=0.0)
+    fx = Q["intr"][0]
+    u = np.arange(W, dtype=np.float32) - W / 2.0
+    v = np.arange(H, dtype=np.float32) - H / 2.0
+    img = np.stack([u[None, :] * f0 / fx, v[:, None] * f0 / fx, f0], -1).astype(np.float32)
+    blob = run("(e) encode_organized", lambda: lib.organized.encode_organized(img, f0 > 0,
+                                                                              focal=fx))
+    back, ok, _ = run("(e) decode_organized", lambda: lib.organized.decode_organized(blob))
+    out["organized"] = (len(blob), bool(np.array_equal(ok, f0 > 0)), bool(np.array_equal(
+        np.rint(back[..., 2].astype(np.float64) * 1000.0), np.floor(f0 * 1000.0))),
+        hashlib.sha256(blob).hexdigest())
+    med = lib.buffers.MedianBuffer(H * W, Q["window"])
+    avg = lib.buffers.AverageBuffer(H * W, Q["window"])
+    bufs = []
+    for fr in frames:
+        run("(e) MedianBuffer.push", lambda: med.push(fr.reshape(-1)))
+        run("(e) AverageBuffer.push", lambda: avg.push(fr.reshape(-1)))
+        bufs.append((med.data, avg.data))
+    out["buffers"] = bufs
+    npy = os.path.join(work, "npy")
+    os.makedirs(npy)
+    for k, fr in enumerate(frames):
+        np.save(os.path.join(npy, f"depth_{k:03d}.npy"), np.nan_to_num(fr, nan=0.0))
+    out["image grabber"] = run("(e) ImageGrabber", lambda: lib.image_grabber(npy, fx))
+    out["tim"] = run("(e) TimGrabber", lambda: lib.tim_frames(inp["tim_log"]))
+    pcds = os.path.join(work, "frames")
+    run("(e) tools.image_grabber_saver", lambda: lib.tool("image_grabber_saver", [
+        npy, pcds, "-focal", str(fx)]))
+    html = os.path.join(work, "html")
+    os.makedirs(html)
+    out["cli image"] = {}
+    for name, argv in (("image_grabber_viewer", [npy, "-focal", str(fx), "-html",
+                                                 os.path.join(html, "igv.html")]),
+                       ("pcd_grabber_viewer", [pcds, "-max_frames", str(len(frames)),
+                                               "-html", os.path.join(html, "pgv.html")]),
+                       ("image_viewer", [os.path.join(pcds, "frame_000000.pcd"), "-depth",
+                                         os.path.join(html, "depth.png")])):
+        rc, text = run(f"(e) tools.{name}", lambda: lib.tool(name, argv))
+        out["cli image"][name] = (rc, re.sub(r"[0-9.]+ fps", "fps", text.replace(work, "")))
+    out["files"].update({f"frames/{f}": _sha(os.path.join(pcds, f))
+                         for f in sorted(os.listdir(pcds))})
+    # (f) views
+    vis = lib.vis
+    run("(f) cloud_to_html", lambda: vis.cloud_to_html(os.path.join(html, "map.html"),
+                                                       lib.cloud(world)))
+    with open(os.path.join(html, "map.html")) as f:
+        payload = json.loads(f.read().split("const PTS = ")[1].split(";")[0])
+    shown = np.frombuffer(base64.b64decode(payload), np.float32).reshape(-1, 3)
+    sel = np.random.default_rng(0).choice(len(world), 500_000, replace=False) \
+        if len(world) > 500_000 else np.arange(len(world))
+    out["html rows"] = (len(shown), bool(np.array_equal(shown, world[sel])))
+    mv, mt = run("(f) organized_fast_mesh", lambda: lib.organized_mesh(img, f0 > 0))
+    out["mesh"] = (len(mv), len(mt))
+    run("(f) mesh_to_html", lambda: vis.mesh_to_html(os.path.join(html, "mesh.html"), mv, mt))
+    out["ascii"] = run("(f) render_ascii", lambda: vis.render_ascii(sweeps[drive][0]))
+    traj, gold = use[:, :3, 3], inp["golden"][:, :3, 3]
+    run("(f) plot_xy_svg", lambda: vis.plot_xy_svg(os.path.join(html, "traj.svg"), [
+        (gold[:, 0], gold[:, 1], "golden"), (traj[:, 0], traj[:, 1], "estimated")],
+        title="path Q trajectory"))
+    hist = np.histogram(np.linalg.norm(xyz0, axis=1), bins=50, range=(0.0, Q["max_range"]))[0]
+    run("(f) plot_histogram_svg", lambda: vis.plot_histogram_svg(
+        os.path.join(html, "ranges.svg"), hist, name="sweep 0 ranges"))
+    # views of what two devices or packages round apart: B1's and B2's results
+    # and the range image's trigonometry
+    rounded = os.path.join(work, "rounded")
+    os.makedirs(rounded)
+    ranges = run("(f) range image", lambda: lib.range_image(sweeps[drive][0]))
+    run("(f) range_image_to_pgm", lambda: vis.range_image_to_pgm(
+        os.path.join(rounded, "sweep0.pgm"), ranges))
+    out["range image"] = int(np.isfinite(ranges).sum())
+    viewer = vis.Visualizer("path Q")
+    viewer.add_point_cloud(lib.cloud(mvox), "map")
+    for k in range(len(traj) - 1):
+        viewer.add_line(traj[k], traj[k + 1], f"traj {k}")
+    viewer.add_sphere(traj[-1], 1.0, "car")
+    picks, keys = [], []
+    viewer.register_point_picking_callback(lambda e: picks.append((e.get_point_index(),
+                                                                   e.get_point())))
+    viewer.register_keyboard_callback(lambda e: keys.append(e.get_key_sym()))
+    run("(f) Visualizer.spin_once", lambda: viewer.spin_once(os.path.join(rounded, "vis.html")))
+    pick = len(mvox) // 3
+    p = mvox[pick]
+    n_ev = viewer.dispatch_events([{"type": "pick", "index": pick, "x": float(p[0]),
+                                    "y": float(p[1]), "z": float(p[2])}])
+    out["pick"] = (n_ev, picks == [(pick, (float(p[0]), float(p[1]), float(p[2])))])
+    out["live"] = run("(f) LiveViewer", lambda: q_live(vis, viewer, keys))
+    sweep_pcd = f"{pre_p}_000.pcd"
+    mvox_pcd = os.path.join(work, "map_voxels.pcd")
+    lib.save_cloud(mvox_pcd, lib.cloud(mvox))
+    vpcd = [os.path.join(work, f"front_{k}.pcd") for k in (0, 1)]
+    for k in (0, 1):
+        lib.save_cloud(vpcd[k], lib.cloud(vox[k]))
+    out["cli views"] = {}
+    for name, argv in (
+            ("hdl_viewer_simple", [inp["captures"][drive]["pcap"], "-model", drive, "-max_sweeps",
+                                   "3", "-html", os.path.join(html, "hdl.html")]),
+            ("vlp_viewer", [inp["captures"]["VLP16"]["pcap"], "-max_sweeps", "3", "-html",
+                            os.path.join(html, "vlp.html")]),
+            ("pcd_viewer", [sweep_pcd, "-html", os.path.join(html, "pcd.html")]),
+            ("octree_viewer", [mvox_pcd, os.path.join(rounded, "octree.html"), "-resolution",
+                               "0.5"]),
+            ("obj_rec_ransac_orr_octree", [mvox_pcd, "-leaf", "0.5", "-html",
+                                           os.path.join(rounded, "orr.html")]),
+            ("registration_visualizer", [vpcd[1], vpcd[0], os.path.join(rounded, "reg"),
+                                         *Q["viewer"]])):
+        rc, text = run(f"(f) tools.{name}", lambda: lib.tool(name, argv))
+        out["cli views"][name] = (rc, text.replace(work, ""))
+    out["files"].update({f"html/{k}": v for k, v in _tree_digest(html).items()})
+    out["rounded files"] = sorted(_tree_digest(rounded))
+    out["ranges"] = ranges
+    shutil.rmtree(work, ignore_errors=True)
+    return out, secs
+
+
+def q_live(vis, viewer, keys):
+    """A ``LiveViewer`` of ``viewer`` on 127.0.0.1: a client thread GETs the
+    first frame and POSTs a key event, each with a 10 s timeout; then
+    ``close``. Returns ``(frame rows, rows expected, key delivered, server
+    thread stopped, client finished)``."""
+    import threading
+    import urllib.request
+
+    live = vis.LiveViewer(viewer, poll_timeout=2.0)
+    got = {}
+
+    def client():
+        with urllib.request.urlopen(live.url + "frame?seq=0", timeout=10) as r:
+            got["frame"] = json.loads(r.read())
+        req = urllib.request.Request(live.url + "events", method="POST",
+                                     data=json.dumps([{"type": "key", "key": "k"}]).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            got["events"] = json.loads(r.read())
+
+    t = threading.Thread(target=client)
+    t.start()
+    t.join(timeout=30)
+    thread = live._thread
+    live.close()
+    return (got.get("frame", {}).get("n"), len(viewer._flatten()[0]),
+            got.get("events") == {"dispatched": 1} and keys == ["k"], not thread.is_alive(),
+            not t.is_alive())
+
+
+
+def q_buffer_reference(frames, window: int, k: int):
+    """Frame ``k``'s per-pixel upper median and mean of the valid samples in
+    the last ``window`` frames, in plain numpy, and ``np.nanmedian`` with the
+    pixels whose valid count is odd (where the upper median is the median)."""
+    win = np.stack([f.reshape(-1) for f in frames[max(0, k - window + 1):k + 1]]).astype(
+        np.float64)
+    n = np.sum(~np.isnan(win), axis=0)
+    srt = np.sort(win, axis=0)                        # NaN last
+    upper = np.take_along_axis(srt, np.minimum(n // 2, len(win) - 1)[None], 0)[0]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean = np.nansum(win, axis=0) / n
+    nanmed = np.full(win.shape[1], np.nan)
+    some = n > 0
+    nanmed[some] = np.nanmedian(win[:, some], axis=0)
+    return (np.where(n > 0, upper, np.nan).astype(np.float32),
+            np.where(n > 0, mean, np.nan).astype(np.float32), nanmed, n % 2 == 1)
+
+
+def path_q_metrics(inp, out, Q) -> dict:
+    """Path Q's numbers: the replay against the rendered returns, the
+    trajectory, the stores, the surface error, the streams and the views."""
+    from pcl_tpu_torch.registration import trajectory
+
+    m = {}
+    drive = Q["drive"]
+    for model, cap in inp["captures"].items():
+        got = out[f"sweeps {model}"]
+        n_it, n_fr, same = out[f"both ways {model}"]
+        m[f"sweeps {model}"] = [n_it, n_fr, len(cap["returns"])]
+        m[f"both ways {model}"] = bool(same)
+        m[f"returns {model}"] = [len(x) for x in got]
+        m[f"decode err {model}"] = max(
+            float(np.abs(a.astype(np.float64) - b).max()) if len(a) == len(b) else math.inf
+            for a, b in zip(got, cap["returns"])) if len(got) == len(cap["returns"]) else math.inf
+        m[f"devices {model}"] = out[f"devices {model}"]
+        m[f"intensity {model}"] = all(i is not None and len(i) == len(x)
+                                      for i, x in zip(out[f"intensity {model}"], got))
+    m["cli same"] = bool(out["cli same"])
+    poses = out["poses"]
+    ate = trajectory.trajectory_ate(poses, inp["golden"], align=False)
+    rpe = trajectory.trajectory_rpe(poses, inp["golden"])
+    m.update(ate=ate.rmse, ate_max=ate.max, rpe_t=rpe.trans_rmse, rpe_r=rpe.rot_rmse,
+             icp=out["icp"])
+    st, tr = out["store"], out["tree"]
+    m["map points"] = out["map points"]
+    m["store"] = st
+    m["tree"] = tr
+    m["queries"] = dict(box=out["query box"], frustum=out["query frustum"], bb=out["query bb"])
+    d = np.sqrt(out["surface nn"][1].astype(np.float64))
+    m.update(map_voxels=len(out["map voxels"]), surface_p50=float(np.percentile(d, 50)),
+             surface_p99=float(np.percentile(d, 99)), surface_max=float(d.max()))
+    comp = out["compression"]
+    m["compression"] = dict(exact=all(c[3] for c in comp),
+                            ratio=float(np.mean([c[0] / c[1] for c in comp])),
+                            bytes=int(np.mean([c[0] for c in comp])),
+                            voxels=int(np.mean([c[2] for c in comp])))
+    n_stream, n_coded, ok, _ = out["range coder"]
+    m["range coder"] = dict(stream=n_stream, coded=n_coded, round_trip=bool(ok))
+    m["organized"] = dict(bytes=out["organized"][0], mask=out["organized"][1],
+                          depth=out["organized"][2])
+    med_ok = avg_ok = nanmed_ok = True
+    for k, (med, avg) in enumerate(out["buffers"]):
+        ref_med, ref_avg, nanmed, odd = q_buffer_reference(inp["frames"], Q["window"], k)
+        med_ok &= bool(np.array_equal(med, ref_med, equal_nan=True))
+        avg_ok &= bool(np.array_equal(avg, ref_avg, equal_nan=True))
+        nanmed_ok &= bool(np.array_equal(med[odd], nanmed[odd].astype(np.float32)))
+    m["buffers"] = dict(median=med_ok, mean=avg_ok, nanmedian_odd=nanmed_ok)
+    H, W = Q["shape"]
+    fx = Q["intr"][0]
+    u = np.arange(W, dtype=np.float32) - W / 2.0
+    v = np.arange(H, dtype=np.float32) - H / 2.0
+    err, masks, devs = 0.0, True, set()
+    for (xyz, mask, w, h, dv), fr in zip(out["image grabber"], inp["frames"]):
+        z = np.nan_to_num(fr, nan=0.0)
+        ref = np.stack(np.broadcast_arrays(u[None, :] * z / fx, v[:, None] * z / fx, z),
+                       -1).reshape(-1, 3)
+        ok = (z > 0).reshape(-1)
+        masks &= bool(np.array_equal(mask, ok)) and (w, h) == (W, H)
+        err = max(err, float(np.abs(xyz[ok] - ref[ok]).max()))
+        devs.add(dv)
+    m["image grabber"] = dict(frames=len(out["image grabber"]), mask=masks, err=err,
+                              devices=sorted(devs))
+    scans, tdev, joined = out["tim"]
+    terr = 0.0
+    for got, truth in zip(scans, inp["tim_truth"]):
+        ok = np.isfinite(truth[:, 0])
+        terr = max(terr, float(np.abs(got[ok] - truth[ok]).max()) if len(got) == len(truth)
+                   else math.inf)
+    m["tim"] = dict(scans=len(scans), err=terr, devices=sorted(set(tdev)), joined=joined,
+                    returns=int(sum(np.isfinite(t[:, 0]).sum() for t in inp["tim_truth"])))
+    m["cli"] = {k: v[0] for k, v in {**out["cli image"], **out["cli views"]}.items()}
+    m.update(html_rows=out["html rows"], pick=out["pick"], live=out["live"],
+             mesh=out["mesh"], range_image=out["range image"])
+    return m
+
+
+Q_PLAIN_ROWS = 1 << 15      # B1's plain version on the first rows of a call
+# limits: 1.5 x the JAX package's CPU rehearsal at full width (tests/rehearse_path_q.py jax,
+# 59 min on an 8-core CPU, 51 of them the front end): ATE 2.7443 m over the 40 sweeps (the
+# front end stops short of each 1 m step along the street), the map's p99 surface error
+# 2.9418 m (the drift; p50 0.0537 m)
+Q_LIMITS = dict(ate=4.117, surface_p99=4.413)
+Q_DECODE_TOL = 1.5e-3       # m: half the 2 mm range unit, and float32 at 100 m
+Q_TIM_TOL = 1e-3            # m: half the TiM's 1 mm unit, and float32 at 25 m
+
+
+def q_checks(m, lim, Q, expect, dev_type="cuda"):
+    """Path Q's checks: the exact ones always, the measured ones against
+    ``lim`` (a limit of None is printed, not checked); the clouds the
+    grabbers make must lie on ``dev_type``."""
+    printed = []
+    for model, (n, _) in Q["captures"].items():
+        expect(m[f"sweeps {model}"] == [n, n, n],
+               f"(b) {model}: sweeps (CloudIterator, frames(), revolutions) "
+               f"{m[f'sweeps {model}']}")
+        expect(m[f"both ways {model}"], f"(b) {model}: CloudIterator and frames() differ")
+        expect(m[f"devices {model}"] == [dev_type] and m[f"intensity {model}"],
+               f"(b) {model}: sweeps on {m[f'devices {model}']}, intensity "
+               f"{m[f'intensity {model}']}")
+        expect(m[f"decode err {model}"] <= Q_DECODE_TOL,
+               f"(b) {model}: a decoded point lies {m[f'decode err {model}']} m from its "
+               f"rendered return (limit {Q_DECODE_TOL})")
+    expect(m["cli same"], "(b) tools.pcap_to_pcd and tools.hdl_grabber_example -save differ")
+    expect(all(m["icp"]["converged"]) and not any(m["icp"]["truncated"]),
+           f"(c) ICP: {m['icp']}")
+    for key, what in (("ate", "(c) ATE"), ("surface_p99", "(d) the map's p99 surface error")):
+        L = lim[key]
+        if L is None:
+            printed.append(f"{what} {m[key]:.5f} m")
+        else:
+            expect(m[key] <= L, f"{what} {m[key]:.5f} m (limit {L})")
+    st, tr, n = m["store"], m["tree"], m["map points"]
+    expect(st["stored"] == st["n_points"] == n and st["lod_ok"] == st["lod_files"],
+           f"(d) OutofcoreOctree: {st}, map {n}")
+    expect(tr["points"] == tr["accepted"] == n and tr["lod_bad"] == 0,
+           f"(d) HierarchicalOutofcoreOctree: {tr}, map {n}")
+    for k, (cnt, same) in m["queries"].items():
+        expect(same and cnt > 0, f"(d) query {k}: {cnt} points, same as the mask {same}")
+    c = m["compression"]
+    expect(c["exact"], "(e) decompress_cloud differs from the voxel centres")
+    expect(m["range coder"]["round_trip"], "(e) the range coder's round trip differs")
+    expect(m["organized"]["mask"] and m["organized"]["depth"],
+           f"(e) organized compression: {m['organized']}")
+    expect(all(m["buffers"].values()), f"(e) buffers against numpy: {m['buffers']}")
+    ig = m["image grabber"]
+    expect(ig["frames"] == Q["frames"] and ig["mask"] and ig["err"] <= 1e-6
+           and ig["devices"] == [dev_type],
+           f"(e) ImageGrabber: {ig}")
+    t = m["tim"]
+    expect(t["scans"] == Q["tim_scans"] and t["err"] <= Q_TIM_TOL and t["joined"]
+           and t["devices"] == [dev_type], f"(e) TimGrabber: {t}")
+    expect(all(v == 0 for v in m["cli"].values()), f"(e), (f) CLI exit codes {m['cli']}")
+    expect(m["html_rows"][1], f"(f) cloud_to_html's payload is not default_rng(0)'s rows")
+    expect(m["pick"] == (1, True), f"(f) the scripted pick: {m['pick']}")
+    n_live, n_want, key, stopped, finished = m["live"]
+    expect(n_live == n_want and key and stopped and finished,
+           f"(f) LiveViewer: frame {n_live} of {n_want} rows, key {key}, server stopped "
+           f"{stopped}, client finished {finished}")
+    return printed
+
+
+def q_card_vs_cpu(expect, card=None):
+    """Path Q's chain at ``Q_SMALL`` on the CPU, then on the card with the
+    CPU's poses for the map: the poses to 1e-5, every file and stream that
+    no kernel computes bit for bit, the rest as numbers. Returns lines to
+    print."""
+    card = torch.device("cuda") if card is None else card
+    Q = Q_SMALL
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = path_q_inputs(Q, tmp, card)
+        b, _ = path_q_chain(inp, Q, torch.device("cpu"))
+        a, _ = path_q_chain(inp, Q, card, poses=b["poses"])
+    gap = float(np.abs(a["poses"] - b["poses"]).max())
+    diff = sorted(k for k in set(a["files"]) | set(b["files"])
+                  if a["files"].get(k) != b["files"].get(k))
+    same_streams = all(a[k] == b[k] for k in ("range coder", "organized", "compression",
+                                              "cli image", "ascii", "blob 0"))
+    same_sweeps = all(np.array_equal(x, y) for x, y in zip(a["sweeps VLP16"],
+                                                           b["sweeps VLP16"]))
+    bufs = all(np.array_equal(x[0], y[0], equal_nan=True) and np.array_equal(
+        x[1], y[1], equal_nan=True) for x, y in zip(a["buffers"], b["buffers"]))
+    vgap = float(np.abs(a["map voxels"] - b["map voxels"]).max()) \
+        if a["map voxels"].shape == b["map voxels"].shape else math.inf
+    expect(gap <= 1e-5 and not diff and same_streams and same_sweeps and bufs
+           and vgap <= 1e-5, f"(card vs CPU) poses by {gap}, files that differ {diff[:5]}, "
+                             f"streams equal {same_streams}, sweeps {same_sweeps}, buffers "
+                             f"{bufs}, map voxels by {vgap}")
+    return [f"{len(a['files'])} files equal, poses by {gap:.1e}, map voxels by {vgap:.1e}"]
+
+
+def phase19_path_q(segsum, nn1_mod, record_b1, record_b2):
+    """Path Q: an HDL-32E drive through path C's street, replayed from a pcap
+    into path C's front end, stored out of core, compressed and shown."""
+    from pcl_tpu_torch.search import bruteforce
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 19: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    dev = torch.device("cuda")
+    Q = Q_FULL
+    card = card_line()
+    lines, csecs = timed(lambda: q_card_vs_cpu(expect))
+    print(f"phase 19: card against CPU at 3 VLP-16 sweeps (also the warm-up, {csecs:.1f} s): "
+          + "; ".join(lines), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, isecs = timed(lambda: path_q_inputs(Q, tmp, dev))
+        for model, cap in inp["captures"].items():
+            n = [len(r) for r in cap["returns"]]
+            print(f"phase 19: {model}: {len(n)} sweeps of {cap['rays'] // len(n)} rays, "
+                  f"{cap['packets']} packets, returns per sweep {min(n)}-{max(n)} (mean "
+                  f"{np.mean(n):.0f})", flush=True)
+        print(f"phase 19: inputs in {isecs:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        segsum.segment_sum_sorted.launches = 0
+        nn1_mod.nn1.launches = 0
+        with kernel_calls(bruteforce, segsum) as calls:
+            (out, secs), total = timed(lambda: path_q_chain(
+                inp, Q, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
+        b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+        record_b1["launches_by_path"]["Q"] = b1
+        record_b2["launches_by_path"]["Q"] = b2
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"phase 19: path Q in {total:.1f} s, peak memory {peak:.2f} GiB, launches nn1 "
+              f"{b1}, segsum {b2} [{card}]", flush=True)
+        for name, v in secs.items():
+            print(f"phase 19: {name}: {v * 1e3:.1f} ms [{card}]", flush=True)
+        parts = {p: sum(v for k, v in secs.items() if k.startswith(p))
+                 for p in ("(b)", "(c)", "(d)", "(e)", "(f)")}
+        print("phase 19: by part " + ", ".join(f"{p} {v:.2f} s" for p, v in parts.items())
+              + f" [{card}]", flush=True)
+        n_sweeps = Q["captures"][Q["drive"]][0]
+        iters = int(Q["viewer"][1])
+        expect(b2 == n_sweeps + 3 and b1 == iters + 1,
+               f"path Q launched B2 {b2} times (the front end once a sweep, {n_sweeps}, the "
+               f"map's voxels and the two octree viewers: {n_sweeps + 3}) and B1 {b1} times "
+               f"(registration_visualizer's ICP once an iteration, {iters}, and the map's "
+               f"surface error once: {iters + 1})")
+        expect(len(calls["nn1"]) == b1 and len(calls["segsum"]) == b2,
+               "the kept kernel calls do not match the launch counts")
+        m = path_q_metrics(inp, out, Q)
+        print("phase 19: metrics " + json.dumps(m, default=float), flush=True)
+        for what in q_checks(m, Q_LIMITS, Q, expect):
+            print(f"phase 19: printed, not checked: {what}", flush=True)
+        rows1, rows2 = hold_to_plain(calls, nn1_mod, segsum, expect, "phase 19:", Q_PLAIN_ROWS,
+                                     card, time_once="stage")
+    record_b1["path_q"] = rows1
+    record_b2["path_q"] = rows2
+    check(not failed, "path Q: " + "; ".join(failed))
+    return {"total_s": total, "peak_gib": peak, "parts": parts, "metrics": m}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -7870,6 +8861,8 @@ def main() -> int:
     lap("phase 17")
     out_p = phase18_path_p(segsum, nn1_mod, record, record_b2)
     lap("phase 18")
+    out_q = phase19_path_q(segsum, nn1_mod, record, record_b2)
+    lap("phase 19")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
@@ -7877,7 +8870,8 @@ def main() -> int:
         # J (the filter front end), K (descriptors, keypoints, clusters),
         # L (surface reconstruction and segmentation), M (the octree, range
         # images and NARF), N (recognition), O (people, CRF and tracking),
-        # P (stereo, organized edges, image extractors, meshes)
+        # P (stereo, organized edges, image extractors, meshes), Q (a Velodyne
+        # drive stored out of core, compressed and shown)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -7905,7 +8899,8 @@ def main() -> int:
           + f"; path M {out_m['total_s']:.2f} s, peak {out_m['peak_gib']:.2f} GiB"
           + f"; path N {out_n['total_s']:.1f} s, peak {out_n['peak_gib']:.2f} GiB"
           + f"; path O {out_o['total_s']:.1f} s, peak {out_o['peak_gib']:.2f} GiB"
-          + f"; path P {out_p['total_s']:.1f} s, peak {out_p['peak_gib']:.2f} GiB [{card}]",
+          + f"; path P {out_p['total_s']:.1f} s, peak {out_p['peak_gib']:.2f} GiB"
+          + f"; path Q {out_q['total_s']:.1f} s, peak {out_q['peak_gib']:.2f} GiB [{card}]",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

@@ -215,13 +215,17 @@ def extract_surface_points(vol: TSDFVolume, max_points: int = 1 << 18,
 
 
 def depth_to_vertex_map(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
-    """``[H,W]`` depth -> ``[H,W,3]`` camera-frame vertices (createVMap)."""
+    """``[H,W]`` depth -> ``[H,W,3]`` camera-frame vertices (createVMap).
+    The focal lengths divide as tensors on the depth's device: CUDA divides
+    by a host scalar as a product with its reciprocal, which rounds apart
+    from the CPU's (and the JAX package's) quotient."""
     H, W = depth.shape
     v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=depth.device),
                           torch.arange(W, dtype=torch.float32, device=depth.device),
                           indexing="ij")
-    return torch.stack([(u - intr.cx) * depth / intr.fx, (v - intr.cy) * depth / intr.fy,
-                        depth], dim=-1)
+    fx, fy = (torch.tensor(f, dtype=torch.float32, device=depth.device)
+              for f in (intr.fx, intr.fy))
+    return torch.stack([(u - intr.cx) * depth / fx, (v - intr.cy) * depth / fy, depth], dim=-1)
 
 
 def vertex_map_normals(vmap: torch.Tensor) -> torch.Tensor:

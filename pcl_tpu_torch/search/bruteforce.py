@@ -71,11 +71,13 @@ def nn1(
     """Exact 1-NN: ``(index [Q] int32, sqdist [Q] f32)``.
 
     3-D searches go to kernel B1's wrapper (``ops.nn1.nn1``: exact
-    distances). Other widths sweep ``chunk`` queries against ``tile`` targets
-    at a time with the matmul-identity distance; a later tile wins only on
-    strictly less, so the lowest index wins a tie."""
+    distances), made contiguous first (the wrapper takes no strides; a
+    voxel grid's xyz is a column slice of its sums). Other widths sweep
+    ``chunk`` queries against ``tile`` targets at a time with the
+    matmul-identity distance; a later tile wins only on strictly less, so
+    the lowest index wins a tie."""
     if queries.shape[-1] == 3:
-        return _nn1_kernel.nn1(target, tmask, queries)
+        return _nn1_kernel.nn1(target.contiguous(), tmask.contiguous(), queries.contiguous())
     dev = queries.device
     parts = []
     for s in range(0, max(queries.shape[0], 1), chunk):

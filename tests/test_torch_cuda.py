@@ -1343,3 +1343,60 @@ def test_render_depth_and_organized_edges_on_card_match_cpu(cuda):
     assert ((la & 6) > 0).sum() > 50
     assert np.mean(ra == rb) >= 0.99
     assert abs(lla - llb) <= 1e-5 * H * W * 10
+
+
+def test_grabbers_make_cuda_clouds_equal_to_the_cpu_run(cuda, tmp_path):
+    """The Velodyne, image and TiM grabbers and the compressed-cloud decoder
+    place their clouds on the card unless told otherwise, and hold the CPU
+    run's points bit for bit (the host decodes; the vertex map's product and
+    quotient round once each on either device)."""
+    from pcl_tpu_torch.io import compression, grabber, tim, velodyne
+
+    rng = np.random.default_rng(60)
+    pkts = [velodyne.encode_packet(np.arange(12) * 0.4 + 12 * 0.4 * p,
+                                   rng.uniform(1, 50, (12, 32)), rng.integers(0, 256, (12, 32)))
+            for p in range(40)]
+    pcap = str(tmp_path / "c.pcap")
+    velodyne.write_pcap(pcap, pkts)
+    for model in ("VLP16", "HDL32E"):
+        a = list(velodyne.PcapVelodyneGrabber(pcap, model).frames())
+        b = list(velodyne.PcapVelodyneGrabber(pcap, model, device="cpu").frames())
+        assert len(a) == len(b) == 1 and a[0].xyz.is_cuda and a[0].attrs["intensity"].is_cuda
+        assert torch.equal(a[0].xyz.cpu(), b[0].xyz)
+    z = rng.uniform(0.5, 4.0, size=(48, 64)).astype(np.float32)
+    z[rng.random(z.shape) < 0.1] = 0.0
+    np.save(str(tmp_path / "d.npy"), z)
+    a = next(grabber.ImageGrabber(str(tmp_path), 50.0).frames())
+    b = next(grabber.ImageGrabber(str(tmp_path), 50.0, device="cpu").frames())
+    assert a.xyz.is_cuda and (a.width, a.height) == (64, 48)
+    assert torch.equal(a.xyz.cpu(), b.xyz) and torch.equal(a.mask.cpu(), b.mask)
+    log = tmp_path / "tim.log"
+    log.write_text("sRA LMDscandata " + "0 " * 23 + "3 3E8 7D0 BB8")
+    a = next(tim.TimGrabber(str(log)).frames())
+    assert a.xyz.is_cuda and torch.equal(a.xyz.cpu(), next(
+        tim.TimGrabber(str(log), device="cpu").frames()).xyz)
+    xyz = rng.normal(size=(5000, 3)).astype(np.float32)
+    blob = compression.compress_cloud(make_cloud(xyz), 0.05)
+    assert blob == compression.compress_cloud(make_cloud(xyz, device="cpu"), 0.05)
+    a = compression.decompress_cloud(blob)
+    assert a.xyz.is_cuda and torch.equal(a.xyz.cpu(),
+                                         compression.decompress_cloud(blob, device="cpu").xyz)
+
+
+def test_brute_icp_on_voxel_grids_launches_b1(cuda):
+    """A voxel grid's xyz is a column slice of its sums (not contiguous):
+    the brute ICP on two grids hands B1 contiguous copies and launches it
+    once an iteration, as on the CPU run (path Q's small front end)."""
+    rng = np.random.default_rng(61)
+    g = rng.uniform(-3, 3, size=(6000, 2))
+    tgt = np.c_[g, 0.3 * np.sin(g[:, 0])].astype(np.float32)
+    src = (tgt + [0.05, -0.02, 0.01]).astype(np.float32)
+    vs, vt = (filters.voxel_downsample(make_cloud(a), 0.1) for a in (src, tgt))
+    assert not vs.xyz.is_contiguous()
+    before = nn1_mod.nn1.launches
+    res = icp(vs, vt, max_corr_dist=float("inf"), max_iterations=5)
+    torch.cuda.synchronize()
+    assert nn1_mod.nn1.launches - before == int(res.iterations)
+    cpu = icp(*(filters.voxel_downsample(make_cloud(a, device="cpu"), 0.1) for a in (src, tgt)),
+              max_corr_dist=float("inf"), max_iterations=5)
+    assert torch.allclose(res.transform.cpu(), cpu.transform, atol=1e-5)

@@ -128,7 +128,19 @@ def test_new_modules_are_covered():
                  "ml/densecrf.py", "people/__init__.py", "people/hog.py",
                  "people/classifier.py", "people/detector.py", "keypoints/corners2d.py",
                  "tracking/__init__.py", "tracking/particle_filter.py", "tracking/kld.py",
-                 "tracking/klt.py", "tools/crf_segmentation.py"):
+                 "tracking/klt.py", "tools/crf_segmentation.py", "io/grabber.py",
+                 "io/velodyne.py", "io/tim.py", "io/buffers.py", "io/range_coder.py",
+                 "io/compression.py", "io/organized_compression.py", "outofcore/__init__.py",
+                 "outofcore/store.py", "outofcore/hierarchy.py", "visualization/__init__.py",
+                 "visualization/export.py", "visualization/plotter.py",
+                 "visualization/visualizer.py", "visualization/live.py",
+                 "tools/hdl_grabber_example.py", "tools/hdl_viewer_simple.py",
+                 "tools/vlp_viewer.py", "tools/pcap_to_pcd.py", "tools/image_grabber_saver.py",
+                 "tools/image_grabber_viewer.py", "tools/image_viewer.py",
+                 "tools/pcd_grabber_viewer.py", "tools/pcd_viewer.py", "tools/octree_viewer.py",
+                 "tools/obj_rec_ransac_orr_octree.py", "tools/registration_visualizer.py",
+                 "tools/concatenate_points_pcd.py", "tools/transform_point_cloud.py",
+                 "tools/pclzf2pcd.py"):
         assert f"pcl_tpu_torch/{must}" in names
 
 
@@ -308,6 +320,20 @@ def test_recognition_exports_the_jax_names():
                                      orr._orr_support))
 
 
+@pytest.mark.parametrize("package", ["outofcore", "visualization"])
+def test_outofcore_and_visualization_export_the_jax_names(package):
+    """``outofcore`` and ``visualization`` import every name the JAX
+    package's ``__init__`` imports, in that order, and list them in
+    ``__all__`` (the JAX package defines no ``__all__`` there)."""
+    _exports_all(package)
+    assert _port_imports(package) == [n for n, _ in _jax_exports(package)]
+    jax_mod = importlib.import_module(f"pcl_tpu.{package}")
+    assert not hasattr(jax_mod, "__all__")
+    port = importlib.import_module(f"pcl_tpu_torch.{package}")
+    for name in port.__all__:
+        assert getattr(port, name).__name__ == getattr(jax_mod, name).__name__
+
+
 def test_ml_exports_kmeans_as_a_sampler_and_a_core():
     """``ml`` exports ``kmeans`` first; its draw, and the RBF primal SVM's,
     is a sampler beside a core that takes the drawn indices (C17)."""
@@ -376,6 +402,46 @@ def test_default_device_is_cuda(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+
+
+def test_stream_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The grabbers, the compressed-cloud decoder and the out-of-core trees'
+    queries place their clouds on CUDA unless told otherwise."""
+    from pcl_tpu_torch.io import compression, grabber, tim, velodyne
+    from pcl_tpu_torch.outofcore import HierarchicalOutofcoreOctree, OutofcoreOctree
+
+    xyz = np.random.default_rng(0).uniform(0, 1, (50, 3)).astype(np.float32)
+    blob = compression.compress_cloud(tcloud.from_numpy(xyz, device="cpu"), 0.1)
+    pcap = str(tmp_path / "c.pcap")
+    velodyne.write_pcap(pcap, [velodyne.encode_packet(np.arange(12.0), np.full((12, 32), 5.0),
+                                                      np.zeros((12, 32)))])
+    np.save(str(tmp_path / "d.npy"), np.ones((4, 5), np.float32))
+    log = tmp_path / "tim.log"
+    log.write_text("sRA LMDscandata " + "0 " * 23 + "2 A B")
+    from pcl_tpu_torch.io import pcd
+    pcd.save(str(tmp_path / "c.pcd"), tcloud.from_numpy(xyz, device="cpu"))
+    store = OutofcoreOctree.create(str(tmp_path / "s"), 0.5, device="cpu")
+    store.add_cloud(tcloud.from_numpy(xyz, device="cpu"))
+    tree = HierarchicalOutofcoreOctree.create(str(tmp_path / "h"), (0, 0, 0), (1, 1, 1),
+                                              device="cpu")
+    tree.add_points(xyz)
+    makers = [lambda: compression.decompress_cloud(blob),
+              lambda: next(velodyne.PcapVelodyneGrabber(pcap).frames()),
+              lambda: next(grabber.ImageGrabber(str(tmp_path), 40.0).frames()),
+              lambda: next(grabber.PCDGrabber(str(tmp_path / "c.pcd")).frames()),
+              lambda: next(tim.TimGrabber(str(log)).frames()),
+              lambda: OutofcoreOctree(store.root).query_box((0, 0, 0), (1, 1, 1)),
+              lambda: HierarchicalOutofcoreOctree(tree.root).query_bb_includes((0, 0, 0),
+                                                                               (1, 1, 1))]
+    on_cpu = [compression.decompress_cloud(blob, device="cpu"),
+              next(velodyne.PcapVelodyneGrabber(pcap, device="cpu").frames()),
+              next(tim.TimGrabber(str(log), device="cpu").frames()),
+              store.query_box((0, 0, 0), (1, 1, 1)), tree.query_bb_includes((0, 0, 0), (1, 1, 1))]
+    assert all(c.xyz.device.type == "cpu" and int(c.count) > 0 for c in on_cpu)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_load_tsdf_defaults_to_cuda(monkeypatch, tmp_path):
