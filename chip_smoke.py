@@ -222,7 +222,24 @@ Builds the port's CUDA kernels from ``pcl_tpu_torch/csrc`` and then:
    ``Visualizer`` with a scripted pick, a ``LiveViewer`` on 127.0.0.1 and
    the viewer tools (B2 twice, B1 once an ICP iteration); (g) the chain at
    3 VLP-16 sweeps on the card against the CPU; every B1 and B2 call held to
-   its plain version.
+   its plain version;
+20. path R, the last 25 CLIs in the order a PCL user chains them, each
+   through its ``main`` with ``--device cuda``: on path C's scan 0 turned z-up
+   (120,000 points) ``tools.voxel_grid`` (B2), ``uniform_sampling``, the
+   passthrough, statistical, radius and radius-count filters, ``grid_min``,
+   ``local_max``, ``morph`` and the progressive morphological filter (the
+   ground against the street's, path J's check), Euclidean clusters of the
+   rest and the ground's plane projection, ``extract_feature`` for all six
+   features, the unary classifier trained on ground and objects and run on
+   scan 1's voxels (B2); the file and per-point tools on the whole scan (PCD
+   encodings, PLY, a triangle soup, NaN tools, viewpoints, demeaning, noise);
+   ``fast_bilateral_filter`` and ``bilateral_upsampling`` on path G's VGA
+   frame; the file tools' bytes against the port's CPU run, the whole chain
+   on the card against the CPU on 15,000 points (each CPU step on the card's
+   inputs, the same host draws); every B1 and B2 call held to its plain
+   version; the native host runtime (``csrc/pcl_native.cpp``, built by the
+   host's compiler) against B1 at 120,000 x 120,000 and against the port's
+   searches; F8's float-to-int casts on the card.
 
 The pair of paths A and B is uniform in a 100 m cube with 0.05 m Gaussian
 noise (seed 0), the source moved by 0.25 deg about z and (0.10, -0.05,
@@ -232,7 +249,8 @@ from seed 8, path G's room and camera from seed 9, path L's frame noise and
 colours from seed 10, path N's model renders from seed 11 and its objects'
 surfaces from seed 12, path O's sequence from seed 13 and its training windows from
 seed 14, path P's stereo pair and surface samples from seed 15, path Q's drive, noise
-and depth frames from seed 16. Any failed check
+and depth frames from seed 16, path R's draws for the card against the CPU and its
+tools' ``-seed`` from seed 17. Any failed check
 raises, so the exit code is non-zero. It prints the card's name and power
 limit, one JSON line describing every kernel, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -3424,13 +3442,13 @@ def filter_front(cloud):
     return c, ground, secs
 
 
-def sor_margin(cloud):
+def sor_margin(cloud, mean_k=J_SOR["mean_k"], stddev_mult=J_SOR["stddev_mult"]):
     """Per point: whether its mean k-NN distance lies within 1e-5 of the
     statistical filter's threshold, or its k-th and (k+1)-th neighbours tie to
     1e-4 (ROADMAP C12); such points may fall either way on another device."""
     from pcl_tpu_torch import search
 
-    k = J_SOR["mean_k"]
+    k = mean_k
     _, d2, valid = search.knn(cloud, cloud.xyz, k + 2)
     d = torch.sqrt(torch.clamp(d2[:, 1:k + 1], min=0.0))
     v = valid[:, 1:k + 1]
@@ -3438,7 +3456,7 @@ def sor_margin(cloud):
     mean_d = torch.where(v, d, 0.0).sum(1) / torch.clamp(nv, min=1)
     m = cloud.mask & (nv >= k)
     g_mean = mean_d[m].mean()
-    thresh = g_mean + J_SOR["stddev_mult"] * mean_d[m].std()
+    thresh = g_mean + stddev_mult * mean_d[m].std()
     tie = (d2[:, k + 1] - d2[:, k]).abs() <= 1e-4 * d2[:, k + 1]
     return ((mean_d - thresh).abs() <= 1e-5 * thresh) | tie
 
@@ -8778,6 +8796,611 @@ def phase19_path_q(segsum, nn1_mod, record_b1, record_b2):
     check(not failed, "path Q: " + "; ".join(failed))
     return {"total_s": total, "peak_gib": peak, "parts": parts, "metrics": m}
 
+# ---------------------------------------------------------------------------
+# Path R: the last 25 CLIs in a PCL user's chain, and the native host runtime
+# ---------------------------------------------------------------------------
+
+R_SEED = 17                 # the draws of a card-against-CPU comparison, the tools' -seed
+R_FULL = dict(points=SCAN_CAPACITY, frame=L_FULL)
+R_SMALL = dict(points=SCAN_CAPACITY // 4, frame=L_SMALL)     # the CPU tests: a quarter scan
+R_CPU = dict(points=SCAN_CAPACITY // 8, frame=L_SMALL)       # the card against the CPU
+# path J's progressive morphological filter (J_PMF) as the CLI's flags
+R_PMF = ["-cell_size", "1.0", "-max_window", "20", "-slope", "1.0", "-initial_distance", "0.5",
+         "-max_distance", "3.0"]
+R_FEATURES = ("normal", "pfh", "fpfh", "vfh", "esf", "shot")
+R_VIEWPOINT = ["0.5", "-1", "2", "0.9238795", "0", "0.3826834", "0"]   # 45 deg about y
+R_NO_DEVICE = ("plyheader", "pcd_convert_NaN_nan")                    # bytes only, no cloud
+R_GROUND_Z = -1.7           # the street's ground in the z-up frame (path J's y = -1.7)
+R_NATIVE_K = 16
+R_NATIVE_RADIUS = 0.5       # m: ~20 of the raw scan's points within it near the sensor
+R_NATIVE_CAP = 64
+# shares of rows within tolerance (the CPU tests' measured floors): normals n.n' >= 1 - 1e-5,
+# descriptors within 1e-3 of their scale (C9's normals flip C19's bins), labels equal
+R_SHARES = dict(normal=0.99, rows=0.9, labels=0.95)
+
+
+def path_r_inputs(scans, golden, R, workdir):
+    """Path R's input files in ``workdir``, written by the port's io on the
+    host: path C's scans 0 and 1 (moved into scan 0's frame), every k-th point
+    up to ``R["points"]``, turned z-up (``J_UP``) as LiDAR tools take them,
+    as binary PCD; path G's frame 0 at ``R["frame"]``'s shape with path L's
+    RGB (``path_l_frame``) as an organized PCD; the scan's points in threes as
+    a binary PLY mesh; the scan as an ascii PCD with every 50th point NaN,
+    spelled ``NaN`` as old writers did."""
+    from pcl_tpu_torch import io
+    from pcl_tpu_torch.core.cloud import Cloud, from_numpy
+    from pcl_tpu_torch.io import pcd as pcd_io
+
+    up = J_UP[:3, :3].astype(np.float64)
+
+    def z_up(s, pose):
+        s = np.asarray(s, np.float64)
+        s = s[::max(1, len(s) // R["points"])][:R["points"]]
+        return ((s @ pose[:3, :3].T + pose[:3, 3]) @ up.T).astype(np.float32)
+
+    raw, raw1 = z_up(scans[0], golden[0]), z_up(scans[1], golden[1])
+    inp = {k: os.path.join(workdir, f"{k}.pcd") for k in ("raw", "raw1", "frame", "old_nan")}
+    inp["mesh"] = os.path.join(workdir, "mesh.ply")
+    io.save(inp["raw"], from_numpy(raw, device="cpu"), data="binary")
+    io.save(inp["raw1"], from_numpy(raw1, device="cpu"), data="binary")
+    fr = path_l_frame(R["frame"])
+    H, W = R["frame"]["shape"]
+    io.save(inp["frame"], Cloud(xyz=torch.from_numpy(fr["xyz"].reshape(-1, 3)),
+                                mask=torch.ones(H * W, dtype=torch.bool),
+                                attrs={"rgb": torch.from_numpy(fr["rgb"].reshape(-1, 3))},
+                                width=W, height=H), data="binary")
+    n3 = len(raw) // 3 * 3
+    io.save_ply(inp["mesh"], from_numpy(raw[:n3], device="cpu"),
+                faces=np.arange(n3, dtype=np.int32).reshape(-1, 3))
+    nan = raw.copy()
+    nan[::50] = np.nan
+    pcd_io.save(inp["old_nan"], Cloud(xyz=torch.from_numpy(nan),
+                                      mask=torch.from_numpy(np.isfinite(nan).all(1))),
+                data="ascii", compact=False)
+    with open(inp["old_nan"], "rb") as f:
+        text = f.read()
+    with open(inp["old_nan"], "wb") as f:
+        f.write(text.replace(b"nan", b"NaN"))
+    return inp
+
+
+def path_r_steps(inp, out, src=None):
+    """Path R's chain in the order a PCL user runs the tools: ``(name, tool,
+    argv, output, kind)``, each output in ``out`` (a file name; the cluster
+    files' prefix; None where the tool prints only). A step reads the outputs
+    of earlier steps from ``src`` (default ``out``), so that a second run can
+    take the first run's files and each step is compared on the same input.
+    ``kind`` says how two runs' outputs are compared (``path_r_compare``)."""
+    O = lambda f: os.path.join(out, f)                          # noqa: E731
+    S = lambda f: os.path.join(src or out, f)                   # noqa: E731
+    steps = [
+        ("voxel_grid", "voxel_grid", [inp["raw"], O("vox.pcd"), "-leaf", str(LEAF)], "vox.pcd",
+         "points"),
+        ("uniform_sampling", "uniform_sampling", [inp["raw"], O("uniform.pcd"), "-radius",
+                                                  str(LEAF)], "uniform.pcd", "bytes"),
+        ("passthrough_filter", "passthrough_filter", [S("vox.pcd"), O("crop.pcd"), "-field", "y",
+                                                      "-min", "-40", "-max", "0"],
+         "crop.pcd", "bytes"),
+        ("outlier_removal statistical", "outlier_removal",
+         [S("crop.pcd"), O("sor.pcd"), "-mean_k", "16", "-std_dev_mul", "1.0"], "sor.pcd", "sor"),
+        ("outlier_removal radius", "outlier_removal",
+         [S("sor.pcd"), O("ror.pcd"), "-method", "radius", "-radius", "0.8", "-min_pts", "2"],
+         "ror.pcd", "bytes"),
+        ("radius_filter", "radius_filter", [S("ror.pcd"), O("clean.pcd"), "-radius", "0.8",
+                                            "-min_neighbors", "2"], "clean.pcd", "bytes"),
+        ("grid_min", "grid_min", [S("clean.pcd"), O("grid_min.pcd"), "-resolution", "1.0"],
+         "grid_min.pcd", "bytes"),
+        ("local_max", "local_max", [S("clean.pcd"), O("local_max.pcd"), "-radius", "1.0"],
+         "local_max.pcd", "bytes"),
+        ("morph", "morph", [S("clean.pcd"), O("morph.pcd"), "-operator", "open",
+                            "-resolution", "1.0"], "morph.pcd", "bytes"),
+        ("pmf ground", "progressive_morphological_filter", [S("clean.pcd"), O("ground.pcd"),
+                                                            *R_PMF], "ground.pcd", "bytes"),
+        ("pmf objects", "progressive_morphological_filter",
+         [S("clean.pcd"), O("objects.pcd"), *R_PMF, "--extract_negative"], "objects.pcd",
+         "bytes"),
+        ("cluster_extraction", "cluster_extraction",
+         [S("objects.pcd"), "-tolerance", "0.5", "-min_size", "20", "-prefix", O("cluster_"),
+          "--write"], "cluster_", "clusters"),
+        ("plane_projection", "plane_projection", [S("ground.pcd"), O("plane.pcd"), "-thresh",
+                                                  "0.1"], "plane.pcd", "plane"),
+    ]
+    for f in R_FEATURES:
+        kind = {"normal": "normal", "fpfh": "fpfh", "vfh": "histogram",
+                "esf": "histogram"}.get(f, "rows")
+        steps.append((f"extract_feature {f}", "extract_feature",
+                      [S("clean.pcd"), O(f"{f}.npy"), "-feature", f, "-k", "16", "-radius", "1.0"],
+                      f"{f}.npy", kind))
+    steps += [
+        ("train_unary_classifier", "train_unary_classifier",
+         [S("ground.pcd"), S("objects.pcd"), "-o", O("codebook.npz"), "-clusters", "8"],
+         "codebook.npz", "codebook"),
+        ("voxel_grid scan 1", "voxel_grid", [inp["raw1"], O("vox1.pcd"), "-leaf", str(LEAF)],
+         "vox1.pcd", "points"),
+        ("unary_classifier_segment", "unary_classifier_segment",
+         [S("vox1.pcd"), S("codebook.npz"), O("labels.pcd")], "labels.pcd", "labels"),
+        # the file and per-point tools on the whole scan
+        ("convert_pcd_ascii_binary 0", "convert_pcd_ascii_binary",
+         [inp["raw"], O("raw_ascii.pcd"), "0"], "raw_ascii.pcd", "bytes"),
+        ("convert_pcd_ascii_binary 1", "convert_pcd_ascii_binary",
+         [S("raw_ascii.pcd"), O("raw_binary.pcd"), "1"], "raw_binary.pcd", "bytes"),
+        ("convert_pcd_ascii_binary 2", "convert_pcd_ascii_binary",
+         [S("raw_binary.pcd"), O("raw_compressed.pcd"), "2"], "raw_compressed.pcd", "bytes"),
+        ("converter pcd to ply", "converter", [inp["raw"], O("raw.ply"), "-f", "binary"],
+         "raw.ply", "bytes"),
+        ("converter ply to pcd", "converter",
+         [S("raw.ply"), O("raw_from_ply.pcd"), "-f", "binary_compressed"], "raw_from_ply.pcd",
+         "bytes"),
+        ("plyheader", "plyheader", [inp["mesh"]], None, "text"),
+        ("ply2raw", "ply2raw", [inp["mesh"], O("mesh.raw")], "mesh.raw", "bytes"),
+        ("pcd_introduce_nan", "pcd_introduce_nan",
+         [inp["raw"], O("raw_nan.pcd"), "-fraction", "0.05", "-seed", str(R_SEED)],
+         "raw_nan.pcd", "bytes"),
+        ("pcd_convert_NaN_nan", "pcd_convert_NaN_nan", [inp["old_nan"], O("raw_nan_fixed.pcd")],
+         "raw_nan_fixed.pcd", "bytes"),
+        ("pcd_change_viewpoint", "pcd_change_viewpoint",
+         [inp["raw"], O("raw_vp.pcd"), *R_VIEWPOINT], "raw_vp.pcd", "bytes"),
+        ("transform_from_viewpoint", "transform_from_viewpoint",
+         [S("raw_vp.pcd"), O("raw_moved.pcd")], "raw_moved.pcd", "bytes"),
+        ("transform_from_viewpoint inverse", "transform_from_viewpoint",
+         [S("raw_vp.pcd"), O("raw_unmoved.pcd"), "--inverse"], "raw_unmoved.pcd", "bytes"),
+        ("demean_cloud", "demean_cloud", [inp["raw"], O("raw_demeaned.pcd")],
+         "raw_demeaned.pcd", "points"),
+        ("add_gaussian_noise", "add_gaussian_noise",
+         [inp["raw"], O("raw_noisy.pcd"), "-sd", "0.02", "-seed", str(R_SEED)],
+         "raw_noisy.pcd", "bytes"),
+        # path G's frame
+        ("fast_bilateral_filter", "fast_bilateral_filter", [inp["frame"], O("frame_fbf.pcd")],
+         "frame_fbf.pcd", "smooth"),
+        ("bilateral_upsampling", "bilateral_upsampling", [inp["frame"], O("frame_bup.pcd")],
+         "frame_bup.pcd", "smooth"),
+    ]
+    return steps
+
+
+def port_runner(dev, inject=None):
+    """``run(name, tool, argv)`` for ``path_r_chain``: the port's CLI
+    ``main`` with ``--device dev`` (but for the two byte tools), given what
+    ``inject(name, argv)`` returns as keyword arguments (the draws of the
+    tools that draw); returns what the tool printed."""
+    import importlib
+
+    def run(name, tool, argv):
+        mod = importlib.import_module(f"pcl_tpu_torch.tools.{tool}")
+        extra = [] if tool in R_NO_DEVICE else ["--device", str(dev)]
+        kw = inject(name, argv) if inject is not None else {}
+        buf = pyio.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([*argv, *extra], **kw)
+        check(rc == 0, f"path R: {name} returned {rc}")
+        return buf.getvalue()
+
+    return run
+
+
+def host_draws(name, argv):
+    """The draws of the tools that draw, made on the host from generators
+    seeded ``R_SEED``: the same for both runs of a card-against-CPU
+    comparison (the generators of the card and of the CPU draw apart)."""
+    from pcl_tpu_torch import io, sac
+    from pcl_tpu_torch.features.global_desc import draw_esf_samples
+    from pcl_tpu_torch.ml.kmeans import kmeans_init_indices
+    from pcl_tpu_torch.tools.add_gaussian_noise import draw_noise
+
+    gen = torch.Generator().manual_seed(R_SEED)
+    if name == "plane_projection":
+        mask = io.load(argv[0], device="cpu").mask
+        return {"draws": sac.draw_samples(sac.PlaneModel(), mask, 1024, "ransac", 0.1, None, gen)}
+    if name == "extract_feature esf":
+        return {"esf_draws": draw_esf_samples(io.load(argv[0], device="cpu").mask, 4096, gen)}
+    if name == "train_unary_classifier":
+        k = int(argv[argv.index("-clusters") + 1])
+        counts = [int(io.load(p, device="cpu").count) for p in argv[:argv.index("-o")]]
+        return {"init_indices": [kmeans_init_indices(torch.ones(n, dtype=torch.bool), min(k, n),
+                                                     gen) for n in counts]}
+    if name == "add_gaussian_noise":
+        sd = float(argv[argv.index("-sd") + 1])
+        return {"noise": draw_noise(io.load(argv[0], device="cpu"), sd, R_SEED)}
+    return {}
+
+
+def path_r_chain(inp, out, run, src=None, on_step=None, only=None):
+    """Every step of ``path_r_steps`` (those named in ``only``, where given)
+    through ``run(name, tool, argv)``: ``{name: (printed text, seconds)}``."""
+    res = {}
+    for name, tool, argv, _, _ in path_r_steps(inp, out, src):
+        if only is not None and name not in only:
+            continue
+        if on_step is not None:
+            on_step(name)
+        res[name] = timed(lambda: run(name, tool, argv))
+    return res
+
+
+def _r_cloud(path):
+    from pcl_tpu_torch import io
+    return io.load(path, device="cpu")
+
+
+def _r_bytes(path):
+    """A file's bytes; a PLY file's writer comment (``generated by pcl_tpu``
+    or ``pcl_tpu_torch``) left out."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return re.sub(rb"comment generated by pcl_tpu(_torch)?\n", b"", data, count=1) \
+        if data.startswith(b"ply\n") else data
+
+
+def _r_rows(path):
+    from pcl_tpu_torch.core.cloud import to_numpy
+    return to_numpy(_r_cloud(path))[0]
+
+
+def _r_plane(text):
+    m = re.search(r"plane \[([^\]]*)\]", text)
+    return np.array([float(v) for v in m.group(1).split()]), text.split("(")[1].split()[0]
+
+
+def path_r_compare(inp, a_dir, b_dir, a_res, b_res, expect, tag, only=None):
+    """Two runs of the chain step by step (those named in ``only``, where
+    given), the second on the first's inputs (``src=a_dir``): each step's
+    outputs by its kind, and what both printed (the directories aside, and
+    but for the steps that print floats). Returns one line a step."""
+    lines = []
+    scale = float(np.abs(_r_rows(inp["raw"])).max())
+    for name, tool, argv, out, kind in path_r_steps(inp, a_dir):
+        if only is not None and name not in only:
+            continue
+        ta, tb = (r[name][0].replace(a_dir + os.sep, "").replace(b_dir + os.sep, "")
+                  for r in (a_res, b_res))
+        if kind not in ("plane", "labels", "points"):
+            expect(ta == tb, f"{tag} {name}: the printed lines differ: {ta!r} against {tb!r}")
+        pa, pb = (os.path.join(d, out) if out else None for d in (a_dir, b_dir))
+        what = ""
+        if kind == "bytes":
+            same = _r_bytes(pa) == _r_bytes(pb)
+            expect(same, f"{tag} {name}: the files differ")
+            what = "bytes equal" if same else "bytes DIFFER"
+        elif kind in ("points", "smooth", "plane"):
+            ca, cb = _r_cloud(pa), _r_cloud(pb)
+            tol = {"points": 1e-6, "smooth": 5e-5, "plane": 1e-5}[kind] * scale
+            ok = torch.equal(ca.mask, cb.mask) and (ca.width, ca.height) == (cb.width, cb.height)
+            err = float((ca.xyz - cb.xyz).abs().max()) if ok and ca.capacity else 0.0
+            expect(ok and err <= tol, f"{tag} {name}: masks differ or points by {err} m")
+            what = f"{int(ca.mask.sum())} points, max |diff| {err:.3e} m"
+            if kind == "plane":
+                (ka, na), (kb, nb) = _r_plane(ta), _r_plane(tb)
+                expect(np.abs(ka - kb).max() <= 1e-5 and na == nb,
+                       f"{tag} {name}: planes {ka} ({na}) and {kb} ({nb})")
+                what += f", plane {ka} ({na} inliers)"
+        elif kind == "sor":
+            src_cloud = _r_cloud(argv[0])
+            margin = sor_margin(src_cloud, mean_k=16, stddev_mult=1.0).numpy()
+            live = src_cloud.mask.numpy()
+            keep = [np.isin(_row_view(src_cloud.xyz.numpy()), _row_view(_r_rows(p)))
+                    for p in (pa, pb)]
+            differ = (keep[0] != keep[1]) & live
+            expect(not (differ & ~margin).any(), f"{tag} {name}: kept points differ")
+            what = (f"{int(keep[0].sum())} kept, {int(differ.sum())} differ at the threshold's "
+                    f"rounding or a neighbour tie ({int((margin & live).sum())} such points)")
+        elif kind == "clusters":
+            n = int(ta.split()[1])
+            for i in range(n):
+                expect(_r_bytes(f"{pa}{i}.pcd") == _r_bytes(f"{pb}{i}.pcd"),
+                       f"{tag} {name}: cluster {i} differs")
+            what = f"{n} clusters, files equal"
+        elif kind in ("normal", "rows", "histogram", "fpfh"):
+            a, b = np.load(pa), np.load(pb)
+            expect(a.shape == b.shape, f"{tag} {name}: shapes {a.shape} and {b.shape}")
+            if kind == "fpfh":
+                # C19: the rows none of whose pairs lies within 1e-5 of a bin
+                # edge (float64, the first run's normals), all within 1e-3
+                firm = _r_fpfh_firm(argv[0], np.load(os.path.join(a_dir, "normal.npy")))
+                err = float(np.abs(a - b)[firm].max()) if firm.any() else 0.0
+                expect(firm.mean() >= 0.3 and err <= 1e-3 * np.abs(b).max(),
+                       f"{tag} {name}: {firm.mean():.4f} of the rows firm, off by {err}")
+                lines.append(f"{name}: {a.shape}, {firm.mean():.4f} of the rows firm (C19), "
+                             f"max |diff| {err:.3e} there")
+                continue
+            if kind == "normal":
+                share = float(((a * b).sum(1) >= 1 - 1e-5).mean())
+                need = R_SHARES["normal"]
+            elif kind == "rows":
+                share = float((np.abs(a - b).max(1) <= 1e-3 * np.abs(b).max()).mean())
+                need = R_SHARES["rows"]
+            else:
+                share = 1.0 - float(np.abs(a - b).sum() / max(np.abs(b).sum(), 1e-12))
+                need = 0.98
+            expect(share >= need, f"{tag} {name}: {share:.4f} agree, under {need}")
+            what = f"{a.shape}, agreement {share:.4f}"
+        elif kind == "codebook":
+            # k-means over FPFH rows whose bins flip with the normals' last bits
+            # (C19): the centroids move (printed, C102); the classes must agree,
+            # and the next step holds what the codebook labels
+            za, zb = np.load(pa), np.load(pb)
+            err = float(np.abs(za["centroids"] - zb["centroids"]).max())
+            sc = float(np.abs(zb["centroids"]).max())
+            expect(np.array_equal(za["class_of"], zb["class_of"]),
+                   f"{tag} {name}: the codebooks' classes differ")
+            what = (f"{len(za['centroids'])} centroids of the same classes, max |diff| "
+                    f"{err:.3e} of {sc:.1f} (printed)")
+        elif kind == "labels":
+            la, lb = (_r_cloud(p).attrs["label"].numpy() for p in (pa, pb))
+            share = float((la == lb).mean())
+            expect(share >= R_SHARES["labels"], f"{tag} {name}: {share:.4f} of the labels agree")
+            what = f"{share:.4f} of {len(la)} labels agree"
+        else:
+            what = "printed lines equal"
+        lines.append(f"{name}: {what}")
+    return lines
+
+
+def _r_fpfh_firm(cloud_path, normals):
+    """FPFH's firm rows of a cloud file's valid points (``float64_cuts``:
+    no pair of a point's or its neighbours' 16-NN within 1e-5 of a bin edge
+    or of flipping its source)."""
+    from pcl_tpu_torch.search import bruteforce
+
+    F = float64_cuts()
+    c = _r_cloud(cloud_path)
+    xyz = c.xyz.numpy()[c.mask.numpy()]
+    t = torch.from_numpy(xyz)
+    idx, _, valid = bruteforce.knn(t, torch.ones(len(xyz), dtype=torch.bool), t, 16)
+    idx, valid = idx.numpy(), valid.numpy()
+    return F.fpfh_firm(F.spfh_firm(xyz, normals, idx, valid), idx, valid)
+
+
+def _row_view(a: np.ndarray) -> np.ndarray:
+    a = np.ascontiguousarray(np.asarray(a, np.float32).reshape(-1, 3))
+    return a.view(np.dtype((np.void, 12))).ravel()
+
+
+# the file and per-point tools whose files the card and the CPU write alike
+# at full size (add_gaussian_noise draws on the device: compared with shared
+# draws at the smaller size)
+R_FILE_STEPS = ("convert_pcd_ascii_binary 0", "convert_pcd_ascii_binary 1",
+                "convert_pcd_ascii_binary 2", "converter pcd to ply", "converter ply to pcd",
+                "plyheader", "ply2raw", "pcd_introduce_nan", "pcd_convert_NaN_nan",
+                "pcd_change_viewpoint", "transform_from_viewpoint",
+                "transform_from_viewpoint inverse")
+
+
+def path_r_checks(inp, out, expect):
+    """Path R's checks on one run's files: ``uniform_sampling`` keeps input
+    points, one per occupied cell; the ground of the progressive morphological
+    filter keeps >= 0.95 of the street's ground voxels and none of the facade
+    voxels 3.5 m up (path J's check); and, printed, the share of scan 1's
+    ground voxels that the classifier labels ground (class 0)."""
+    raw = _r_rows(inp["raw"])
+    uni = _r_rows(os.path.join(out, "uniform.pcd"))
+    leaf = np.float32(LEAF)
+
+    def cells(p):
+        return np.unique(np.floor(p / leaf).astype(np.int64), axis=0)
+
+    expect(len(cells(uni)) == len(uni) == len(cells(raw)),
+           f"uniform_sampling kept {len(uni)} points of {len(cells(raw))} occupied cells")
+    expect(bool(np.isin(_row_view(uni), _row_view(raw)).all()),
+           "uniform_sampling wrote a point that is not an input point")
+    clean = _r_rows(os.path.join(out, "clean.pcd"))
+    g = np.isin(_row_view(clean), _row_view(_r_rows(os.path.join(out, "ground.pcd"))))
+
+    def ground_and_facade(p):
+        return ((np.abs(p[:, 2] - R_GROUND_Z) <= 0.06) & (np.abs(p[:, 0]) <= 9.5),
+                (np.abs(p[:, 0]) >= 9.95) & (p[:, 2] >= R_GROUND_Z + 3.5))
+
+    on_ground, on_facade = ground_and_facade(clean)
+    kept, facade = float(g[on_ground].mean()), float(g[on_facade].mean())
+    expect(kept >= 0.95, f"the ground keeps {kept} of the street's ground voxels")
+    expect(facade == 0.0, f"the ground takes {facade} of the facade voxels 3.5 m up")
+    lab = _r_cloud(os.path.join(out, "labels.pcd"))
+    xyz1, live = lab.xyz.numpy(), lab.mask.numpy()
+    ground1 = ground_and_facade(xyz1)[0] & live
+    share = float((lab.attrs["label"].numpy()[ground1] == 0).mean())
+    return {"uniform": len(uni), "ground_kept": kept, "ground_voxels": int(on_ground.sum()),
+            "facade_in_ground": facade, "facade_voxels": int(on_facade.sum()),
+            "classifier_ground_share": share, "scan1_ground_voxels": int(ground1.sum()),
+            "clusters": len([f for f in os.listdir(out) if f.startswith("cluster_")])}
+
+
+def r_cast_line():
+    """F8 on the card: torch's own float-to-int32 cast of values out of range
+    (printed), and ``xla_int32`` of the same, which must equal the CPU's."""
+    from pcl_tpu_torch.core.casts import xla_int32
+
+    x = torch.tensor([3e9, -3e9, float("nan"), 1e20])
+    card_raw = x.cuda().to(torch.int32).cpu().tolist()
+    cpu_raw = x.to(torch.int32).tolist()
+    card, cpu = xla_int32(x.cuda()).cpu().tolist(), xla_int32(x).tolist()
+    check(card == cpu == [2147483647, -2147483648, 0, 2147483647],
+          f"xla_int32 on the card {card}, on the CPU {cpu}")
+    return (f"[3e9, -3e9, nan, 1e20].to(int32): card {card_raw}, CPU {cpu_raw}; xla_int32: "
+            f"card {card}, CPU {cpu}")
+
+
+def path_r_native(q_np, t_np, nn1_mod, expect, card, dev="cuda"):
+    """The port's native host runtime on the card machine's host, built from
+    ``csrc/pcl_native.cpp`` (a failed build raises): ``KdTree.knn(k=1)`` of
+    ``q_np`` against ``t_np`` held to B1 on the card (indices equal off
+    near-ties, d2 within 1e-6 of q^2 + t^2); ``knn(k=16)`` and ``radius`` on
+    the first 20,000 queries against the port's brute searches on the card
+    (sorted distances, counts off the radius' rounding); ``morton_encode``
+    and ``voxel_centroids`` against their numpy fallbacks. Returns printed
+    lines and each call's seconds."""
+    from pcl_tpu_torch import native, search
+    from pcl_tpu_torch.core.cloud import from_numpy
+    from pcl_tpu_torch.ops import _build
+
+    secs = {}
+    lib, secs["build"] = timed(lambda: _build.host_library("pcl_native"))
+    check(native.available(), "the native library did not load")
+    tree, secs["KdTree"] = timed(lambda: native.KdTree(t_np))
+    (d2, ii), secs["knn k=1"] = timed(lambda: tree.knn(q_np, 1))
+    t, q = torch.from_numpy(t_np).to(dev), torch.from_numpy(q_np).to(dev)
+    m = torch.ones(len(t), dtype=torch.bool, device=dev)
+    ik, dk = (x.cpu().numpy() for x in nn1_mod.nn1(t, m, q))
+    b1_ms = cuda_ms(lambda: nn1_mod.nn1(t, m, q), reps=5)
+    scale = (q_np.astype(np.float64) ** 2).sum(1) + (t_np[ik].astype(np.float64) ** 2).sum(1)
+    miss = ii[:, 0] != ik
+    derr = np.abs(d2[:, 0].astype(np.float64) - dk)
+    tie = np.abs(((q_np[miss] - t_np[ii[miss, 0]]).astype(np.float64) ** 2).sum(1)
+                 - ((q_np[miss] - t_np[ik[miss]]).astype(np.float64) ** 2).sum(1))
+    expect(bool((tie <= 1e-6 * scale[miss]).all()), "native 1-NN: indices differ off a near-tie")
+    expect(bool((derr <= 1e-6 * scale).all()), f"native 1-NN: d2 differs by {derr.max()}")
+    lines = [f"KdTree.knn(k=1) {len(q_np)} x {len(t_np)} against B1: {int(miss.sum())} indices "
+             f"differ (near-ties), max |d2 diff| {derr.max():.3e} (scale "
+             f"{scale.max():.1f}); B1 {b1_ms:.3f} ms [{card}]"]
+    sub = q_np[:20000]
+    (d16, _), secs["knn k=16"] = timed(lambda: tree.knn(sub, R_NATIVE_K))
+    cloud = from_numpy(t_np, device=dev)
+    _, s16, v16 = search.knn(cloud, torch.from_numpy(sub).to(dev), R_NATIVE_K, backend="brute")
+    s16 = torch.where(v16, s16, torch.inf).cpu().numpy()
+    err16 = float(np.abs(np.sort(d16, 1) - np.sort(s16, 1)).max())
+    expect(err16 <= 1e-6 * float(scale.max()), f"native k-NN distances differ by {err16}")
+    (dr, ir, cr), secs["radius"] = timed(lambda: tree.radius(sub, R_NATIVE_RADIUS,
+                                                             cap=R_NATIVE_CAP))
+    _, sr, vr, cnt = search.radius_search(cloud, torch.from_numpy(sub).to(dev), R_NATIVE_RADIUS,
+                                          R_NATIVE_CAP, backend="brute")
+    cnt = cnt.cpu().numpy()
+    all_d2 = None
+    edge = np.zeros(len(sub), bool)
+    if (cnt != cr).any():
+        rows = np.nonzero(cnt != cr)[0]
+        all_d2 = ((sub[rows, None, :].astype(np.float64) - t_np[None]) ** 2).sum(-1)
+        edge[rows] = (np.abs(all_d2 - R_NATIVE_RADIUS ** 2) <= 1e-6 * scale.max()).any(1)
+    expect(bool((edge | (cnt == cr)).all()), "native radius counts differ off the radius")
+    sr = torch.where(vr, sr, torch.inf).cpu().numpy()
+    same = cnt == cr
+    errr = float(np.abs(np.where(np.isfinite(dr), dr, 0) - np.where(np.isfinite(sr), sr, 0))[same]
+                 .max()) if same.any() else 0.0
+    expect(errr <= 1e-6 * float(scale.max()), f"native radius distances differ by {errr}")
+    lines.append(f"knn(k={R_NATIVE_K}) and radius({R_NATIVE_RADIUS} m, cap {R_NATIVE_CAP}) of "
+                 f"{len(sub)} queries against the port's brute searches on the card: max |d2 "
+                 f"diff| {err16:.3e} and {errr:.3e}; counts differ on {int((~same).sum())} "
+                 f"queries (a point on the radius), mean count {cr.mean():.1f}")
+    codes, secs["morton_encode"] = timed(lambda: native.morton_encode(t_np))
+    _, secs["morton_argsort"] = timed(lambda: native.morton_argsort(t_np))
+    fb = native._morton_encode_numpy(t_np)
+
+    def axes(c):
+        out = np.zeros((len(c), 3), np.int64)
+        for b in range(21):
+            for a in range(3):
+                out[:, a] |= ((c >> np.uint64(3 * b + a)) & np.uint64(1)).astype(np.int64) << b
+        return out
+
+    step = int(np.abs(axes(codes) - axes(fb)).max())
+    expect(step <= 1, f"morton_encode {step} steps off the fallback")
+    vc, secs["voxel_centroids"] = timed(lambda: native.voxel_centroids(t_np, LEAF))
+    # the library bins by a float32 product with 1 / leaf, the fallback by a
+    # quotient (C100): they are held on the points that no rounding puts in
+    # another voxel (each axis 1e-4 of a cell from a boundary, or at the
+    # minimum, which keeps the grid's origin)
+    u = (t_np.astype(np.float64) - t_np.min(0)) / LEAF
+    firm = ((np.abs(u - np.round(u)) > 1e-4) | (u == 0)).all(1)
+    va = native.voxel_centroids(t_np[firm], LEAF)
+    vf = native._voxel_centroids_numpy(t_np[firm], LEAF)
+    # both list the voxels in the order of their keys (x major)
+    verr = float(np.abs(va - vf).max()) if va.shape == vf.shape else math.inf
+    expect(verr <= 1e-6 * float(np.abs(t_np).max()),
+           f"voxel_centroids differ from the fallback by {verr} ({len(va)} and {len(vf)} voxels)")
+    lines.append(f"morton_encode: {int((codes == fb).sum())} of {len(fb)} codes equal to the "
+                 f"fallback's, the rest one step off on an axis; voxel_centroids: {len(vc)} "
+                 f"voxels; on the {int(firm.sum())} points 1e-4 of a cell off its boundaries "
+                 f"{len(va)} voxels, max |diff| {verr:.3e} m against the fallback; library "
+                 f"{os.path.basename(lib._name)}")
+    return lines, secs
+
+
+def phase20_path_r(segsum, nn1_mod, scans, golden, record_b1, record_b2):
+    """Path R: the last 25 CLIs chained as a PCL user chains them on path C's
+    scan and path G's frame, and the native host runtime against B1."""
+    from pcl_tpu_torch.search import bruteforce
+
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            print(f"phase 20: CHECK FAILED: {what}", flush=True)
+            failed.append(what)
+
+    card = card_line()
+    dev = torch.device("cuda")
+    print(f"phase 20: F8: {r_cast_line()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = {k: os.path.join(tmp, k) for k in ("in", "card", "cpu", "in_small", "card_small",
+                                                "cpu_small")}
+        for p in d.values():
+            os.makedirs(p)
+        inp, isecs = timed(lambda: path_r_inputs(scans, golden, R_FULL, d["in"]))
+        small = path_r_inputs(scans, golden, R_CPU, d["in_small"])
+        print(f"phase 20: inputs in {isecs:.1f} s: {R_FULL['points']} and {R_CPU['points']} "
+              f"points, frames {R_FULL['frame']['shape']} and {R_CPU['frame']['shape']}",
+              flush=True)
+        # the card against the CPU at the smaller size, the same host draws for
+        # both, each CPU step on the card's inputs (also the warm-up)
+        res_a, asecs = timed(lambda: path_r_chain(small, d["card_small"],
+                                                  port_runner(dev, host_draws)))
+        res_b, bsecs = timed(lambda: path_r_chain(small, d["cpu_small"],
+                                                  port_runner("cpu", host_draws),
+                                                  src=d["card_small"]))
+        for line in path_r_compare(small, d["card_small"], d["cpu_small"], res_a, res_b, expect,
+                                   "card against CPU:"):
+            print(f"phase 20: card against CPU at {R_CPU['points']} points: {line}", flush=True)
+        print(f"phase 20: the small chain took {asecs:.1f} s on the card, {bsecs:.1f} s on the "
+              f"CPU", flush=True)
+        # the main path
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        segsum.segment_sum_sorted.launches = 0
+        nn1_mod.nn1.launches = 0
+        starts = {}
+
+        def on_step(name):
+            calls["stage"] = name
+            starts[name] = (nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches)
+
+        with kernel_calls(bruteforce, segsum) as calls:
+            res, total = timed(lambda: path_r_chain(inp, d["card"], port_runner(dev),
+                                                    on_step=on_step))
+        b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+        record_b1["launches_by_path"]["R"] = b1
+        record_b2["launches_by_path"]["R"] = b2
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        names = list(res)
+        ends = [starts[n] for n in names[1:]] + [(b1, b2)]
+        per = {n: (res[n][1], e[0] - starts[n][0], e[1] - starts[n][1])
+               for n, e in zip(names, ends)}
+        print(f"phase 20: path R, {len(names)} CLI calls, in {total:.1f} s, peak memory "
+              f"{peak:.2f} GiB, launches nn1 {b1}, segsum {b2} [{card}]", flush=True)
+        for n, (s, l1, l2) in per.items():
+            print(f"phase 20: {n}: {s * 1e3:.1f} ms, B1 {l1}, B2 {l2} [{card}]", flush=True)
+        expect(per["voxel_grid"][2] == 1 and per["voxel_grid scan 1"][2] == 1,
+               "tools.voxel_grid did not launch B2 once a scan")
+        expect(len(calls["nn1"]) == b1 and len(calls["segsum"]) == b2,
+               "the kept kernel calls do not match the launch counts")
+        m = path_r_checks(inp, d["card"], expect)
+        print("phase 20: checks " + json.dumps(m), flush=True)
+        # the file tools at full size on the CPU, on the card's inputs
+        res_f = path_r_chain(inp, d["cpu"], port_runner("cpu"), src=d["card"],
+                             only=R_FILE_STEPS)
+        for line in path_r_compare(inp, d["card"], d["cpu"], res, res_f, expect,
+                                   "file tools, card against CPU:", only=R_FILE_STEPS):
+            print(f"phase 20: file tools at full size, card against CPU: {line}", flush=True)
+        rows1, rows2 = hold_to_plain(calls, nn1_mod, segsum, expect, "phase 20:", 1 << 15, card,
+                                     time_once="stage")
+        raw, raw1 = _r_rows(inp["raw"]), _r_rows(inp["raw1"])
+    lines, nsecs = path_r_native(raw1, raw, nn1_mod, expect, card)
+    for line in lines:
+        print(f"phase 20: native: {line}", flush=True)
+    print("phase 20: native seconds " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in nsecs.items())
+          + f" [{card}]", flush=True)
+    record_b1["path_r"] = rows1
+    record_b2["path_r"] = rows2
+    check(not failed, "path R: " + "; ".join(failed))
+    return {"total_s": total, "peak_gib": peak, "checks": m, "native": nsecs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -8863,6 +9486,8 @@ def main() -> int:
     lap("phase 18")
     out_q = phase19_path_q(segsum, nn1_mod, record, record_b2)
     lap("phase 19")
+    out_r = phase20_path_r(segsum, nn1_mod, scans, golden, record, record_b2)
+    lap("phase 20")
     for rec in (record, record_b2):
         # launches on the main paths: A (brute ICP), C (front end), D (GICP,
         # NDT), E (global registration), F (pose graph), G (KinFu: none),
@@ -8871,7 +9496,7 @@ def main() -> int:
         # L (surface reconstruction and segmentation), M (the octree, range
         # images and NARF), N (recognition), O (people, CRF and tracking),
         # P (stereo, organized edges, image extractors, meshes), Q (a Velodyne
-        # drive stored out of core, compressed and shown)
+        # drive stored out of core, compressed and shown), R (the last CLIs)
         rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"no main path launched the {rec['name']} kernel")
     print(f"summary: path A {ms_a:.3f} ms/iteration, path B {ms_b:.3f} ms/iteration, "
@@ -8900,7 +9525,9 @@ def main() -> int:
           + f"; path N {out_n['total_s']:.1f} s, peak {out_n['peak_gib']:.2f} GiB"
           + f"; path O {out_o['total_s']:.1f} s, peak {out_o['peak_gib']:.2f} GiB"
           + f"; path P {out_p['total_s']:.1f} s, peak {out_p['peak_gib']:.2f} GiB"
-          + f"; path Q {out_q['total_s']:.1f} s, peak {out_q['peak_gib']:.2f} GiB [{card}]",
+          + f"; path Q {out_q['total_s']:.1f} s, peak {out_q['peak_gib']:.2f} GiB"
+          + f"; path R {out_r['total_s']:.1f} s, peak {out_r['peak_gib']:.2f} GiB, native k=1 "
+          f"{out_r['native']['knn k=1'] * 1e3:.1f} ms [{card}]",
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [record, record_b2]}), flush=True)

@@ -17,7 +17,7 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.1.0"
+from pcl_tpu_torch.version import __version__
 
 from pcl_tpu_torch.core.cloud import Cloud, make_cloud, from_numpy, to_numpy
 from pcl_tpu_torch.core import transforms, geometry

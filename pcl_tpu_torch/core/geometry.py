@@ -23,15 +23,15 @@ import torch
 _EPS = 1e-12
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Mean of ``x`` over ``dim`` counting only rows where ``mask``."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Mean of ``x`` over ``axis`` counting only rows where ``mask``."""
     w = mask.to(x.dtype)
     if w.ndim != x.ndim:
         shape = [1] * x.ndim
-        shape[dim] = x.shape[dim]
+        shape[axis] = x.shape[axis]
         w = w.reshape(shape)
-    num = torch.sum(x * w, dim=dim)
-    den = torch.clamp(torch.sum(w, dim=dim), min=1.0)
+    num = torch.sum(x * w, dim=axis)
+    den = torch.clamp(torch.sum(w, dim=axis), min=1.0)
     return num / den
 
 

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.core.geometry import _cross
 from pcl_tpu_torch.features.global_desc import estimate_vfh
@@ -116,7 +117,7 @@ def estimate_crh(cloud: Cloud, viewpoint: Optional[torch.Tensor] = None, nbins: 
     nu, nv = normals @ u, normals @ v
     mag = torch.sqrt(nu * nu + nv * nv)
     pos = (torch.atan2(nv, nu) + math.pi) / (2 * math.pi) * nbins
-    b0 = torch.floor(pos).long() % nbins
+    b0 = xla_int32(torch.floor(pos)).long() % nbins
     f = pos - torch.floor(pos)
     wt = w * mag
     hist = torch.zeros(nbins, dtype=torch.float32, device=dev)

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.core.geometry import _cross
 from pcl_tpu_torch.search import bruteforce
@@ -55,7 +56,7 @@ def pair_features(p1: torch.Tensor, n1: torch.Tensor, p2: torch.Tensor, n2: torc
 
 
 def _bin_index(f: torch.Tensor, lo: float, hi: float, nbins: int) -> torch.Tensor:
-    idx = torch.floor(nbins * (f - lo) / (hi - lo)).to(torch.int64)
+    idx = xla_int32(torch.floor(nbins * (f - lo) / (hi - lo))).to(torch.int64)
     return torch.clamp(idx, 0, nbins - 1)
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from pcl_tpu_torch.core import geometry
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_RGB, Cloud
 from pcl_tpu_torch.core.geometry import _cross
 from pcl_tpu_torch.ops.segsum import add_rows
@@ -49,7 +50,7 @@ def estimate_gasd(cloud: Cloud, grid_size: int = 8) -> torch.Tensor:
     xyz, r = _aligned(cloud)
     w = cloud.mask.to(torch.float32)
     pos = (xyz / r * 0.5 + 0.5) * grid_size - 0.5
-    lo = torch.floor(pos).long()
+    lo = xla_int32(torch.floor(pos)).long()
     f = pos - lo
     hist = torch.zeros(grid_size ** 3, dtype=torch.float32, device=xyz.device)
     for dx in (0, 1):

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pcl_tpu_torch.core import geometry
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.core.geometry import _cross
 from pcl_tpu_torch.features.normals import estimate_normals
@@ -226,8 +227,8 @@ def spin_images_reference(
         edge = _f32(np.float32(bin_size) * np.float32(w))
         keep = keep & (beta.abs() < edge) & (alpha < edge)
         beta_bin_size = bin_size
-    bbin = torch.floor(beta / beta_bin_size).to(torch.int64) + w
-    abin = torch.floor(alpha / bin_size).to(torch.int64)
+    bbin = xla_int32(torch.floor(beta / beta_bin_size)).to(torch.int64) + w
+    abin = xla_int32(torch.floor(alpha / bin_size)).to(torch.int64)
     a_border = abin == w
     b_border = bbin == 2 * w
     abin = torch.where(a_border, abin - 1, abin)

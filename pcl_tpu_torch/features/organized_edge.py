@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import Cloud, ATTR_NORMAL, ATTR_RGB
 from pcl_tpu_torch.image import ops as img_ops
 
@@ -123,8 +124,8 @@ def organized_edge_detection(
         corr = torch.full((h, w), torch.nan, dtype=torch.float32, device=dev)
         for s in range(1, max_search_neighbors):
             sf = float(s)
-            srow = rows + torch.floor(dy * sf).to(torch.int32)
-            scol = cols + torch.floor(dx * sf).to(torch.int32)
+            srow = rows + xla_int32(torch.floor(dy * sf))
+            scol = cols + xla_int32(torch.floor(dx * sf))
             inb = (srow >= 0) & (srow < h) & (scol >= 0) & (scol < w)
             idx = torch.clamp(srow.long() * w + scol.long(), 0, h * w - 1)
             zs = zflat[idx]

@@ -27,6 +27,7 @@ import torch
 
 from pcl_tpu_torch import search as search_mod
 from pcl_tpu_torch.core import geometry
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, ATTR_RGB, Cloud
 from pcl_tpu_torch.core.geometry import _cross
 from pcl_tpu_torch.ops.segsum import add_rows
@@ -101,7 +102,7 @@ def _sectors(frames, rel, radius):
     local = torch.einsum("nai,nki->nka", frames, rel)
     dist = torch.linalg.vector_norm(rel, dim=-1)
     az = torch.atan2(local[..., 1], local[..., 0])
-    az_bin = torch.clamp(torch.floor((az + math.pi) / (2 * math.pi) * 8), 0, 7).long()
+    az_bin = xla_int32(torch.clamp(torch.floor((az + math.pi) / (2 * math.pi) * 8), 0, 7)).long()
     el_bin = (local[..., 2] > 0).long()
     r_bin = (dist > _f32(radius) * 0.5).long()
     return (az_bin * 2 + el_bin) * 2 + r_bin
@@ -109,7 +110,8 @@ def _sectors(frames, rel, radius):
 
 def _cos_bins(frames, nbr_n, n_cos_bins):
     cosang = torch.einsum("ni,nki->nk", frames[:, 2, :], nbr_n)
-    return torch.clamp(torch.floor((cosang + 1.0) * 0.5 * n_cos_bins), 0, n_cos_bins - 1).long()
+    return xla_int32(torch.clamp(torch.floor((cosang + 1.0) * 0.5 * n_cos_bins), 0,
+                                 n_cos_bins - 1)).long()
 
 
 def estimate_shot_hard(
@@ -230,7 +232,7 @@ def estimate_shot_interpolated(
     # the cosine bin and its interpolation
     cosD = torch.clamp(torch.einsum("nki,ni->nk", nrm_nbr, v3), -1.0, 1.0)
     binDist = (1.0 + cosD) * nb / 2.0
-    step = torch.floor(binDist + 0.5).long()
+    step = xla_int32(torch.floor(binDist + 0.5)).long()
     frac = binDist - step
     cos_target = torch.where(frac > 0, vol + (step + 1) % nb, vol + (step - 1 + nb) % nb)
     cos_w = frac.abs()
@@ -327,7 +329,7 @@ def estimate_shot_color(
     da = (nbr_lab[..., 1] - lab[:, None, 1]).abs() / 120.0
     db = (nbr_lab[..., 2] - lab[:, None, 2]).abs() / 120.0
     ldist = torch.clamp((dl + (da + db) * 0.5) / 3.0, 0.0, 1.0)
-    col_bin = torch.clamp(torch.floor(ldist * n_color_bins), 0, n_color_bins - 1).long()
+    col_bin = xla_int32(torch.clamp(torch.floor(ldist * n_color_bins), 0, n_color_bins - 1)).long()
     color_hist = _scatter_rows(sector * n_color_bins + col_bin, w, 32 * n_color_bins)
     out = torch.cat([shape_hist, color_hist], dim=-1)
     out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=_EPS)

@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud, make_cloud
 from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.search import bruteforce
@@ -67,7 +68,7 @@ def fast_bilateral(
     nx = cells(gx, grid_xy).expand(H, W)
     ny = cells(gy, grid_xy).expand(H, W)
     nz = cells(gz, grid_z)
-    i0, j0, k0 = (torch.floor(a).to(torch.int64) for a in (nx, ny, nz))
+    i0, j0, k0 = (xla_int32(torch.floor(a)).to(torch.int64) for a in (nx, ny, nz))
     fx, fy, fz = nx - i0, ny - j0, nz - k0
 
     grid = torch.zeros((grid_xy, grid_xy, grid_z, 2), dtype=torch.float32, device=dev)

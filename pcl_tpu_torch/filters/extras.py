@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_INTENSITY, ATTR_NORMAL, Cloud
 from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.sac.models import SacModel
@@ -65,7 +66,7 @@ def grid_minimum(cloud: Cloud, resolution: float) -> Cloud:
     """Keep the lowest (least z) point of each 2-D grid cell, the first in
     index order on a tie (GridMinimum, a DEM for ground filtering)."""
     n, table = cloud.capacity, 1 << 20
-    cell = torch.floor(cloud.xyz[:, :2] / resolution).to(torch.int32)
+    cell = xla_int32(torch.floor(cloud.xyz[:, :2] / resolution))
     h = torch.where(cloud.mask, _hash_cells(cell, (73856093, 19349669), table), table)
     z = torch.where(cloud.mask, cloud.xyz[:, 2], math.inf)
     zmin = torch.full((table + 1,), math.inf, dtype=torch.float32,
@@ -139,7 +140,7 @@ def approximate_voxel_grid(cloud: Cloud, leaf_size) -> Cloud:
     table = 1 << 16
     dev = cloud.xyz.device
     leaf = torch.as_tensor(leaf_size, dtype=torch.float32).to(dev).expand(3)
-    cell = torch.floor(cloud.xyz / leaf).to(torch.int32)
+    cell = xla_int32(torch.floor(cloud.xyz / leaf))
     h = torch.where(cloud.mask, _hash_cells(cell, (73856093, 19349669, 83492791), table), table)
     w = cloud.mask.to(torch.float32)
     sums = torch.zeros((table + 1, 4), dtype=torch.float32, device=dev)

@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import Cloud
 
 _BIG = 1e30
@@ -25,7 +26,7 @@ def _rasterize_min(cloud: Cloud, resolution: float, grid: int):
     point's cell ``[N, 2]``, from the masked bounding box's lower corner."""
     origin = torch.amin(torch.where(cloud.mask[:, None], cloud.xyz, math.inf), dim=0)
     origin = torch.where(torch.isfinite(origin), origin, 0.0)[:2]
-    cell = torch.clamp(torch.floor((cloud.xyz[:, :2] - origin) / resolution).to(torch.int64),
+    cell = torch.clamp(xla_int32(torch.floor((cloud.xyz[:, :2] - origin) / resolution)).long(),
                        0, grid - 1)
     flat = torch.where(cloud.mask, cell[:, 0] * grid + cell[:, 1], grid * grid)
     z = torch.where(cloud.mask, cloud.xyz[:, 2], _BIG)

@@ -20,6 +20,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from pcl_tpu_torch.core.casts import xla_int32
+
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 _PREWITT_X = ((-1.0, 0.0, 1.0), (-1.0, 0.0, 1.0), (-1.0, 0.0, 1.0))
 _HYSTERESIS_SWEEPS = 64
@@ -112,7 +114,7 @@ def canny_from_gradients(gx: torch.Tensor, gy: torch.Tensor, low: float,
     at most 64 sweeps: an unconverged image is returned as it stands."""
     mag = _magnitude(gx, gy)
     ang = torch.atan2(gy, gx)
-    a = torch.remainder(torch.round(ang / (math.pi / 4.0)), 4).to(torch.int32)
+    a = xla_int32(torch.remainder(torch.round(ang / (math.pi / 4.0)), 4))
 
     def shift(m, dy, dx):
         return torch.roll(m, (dy, dx), (0, 1))

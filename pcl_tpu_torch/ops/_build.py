@@ -13,9 +13,11 @@ anew and an unchanged one is loaded as it is. ``nvcc``'s output (with
 the library as ``<name>-<hash>.log``. A failed build raises; nothing falls back
 to the plain PyTorch versions.
 
-``host_library`` builds a host C source (``csrc/<name>.c``: file parsing, no
-device code) the same way with the host's C compiler, or ``nvcc -x c`` where
-there is none; these are not among the kernel libraries ``build_all`` counts.
+``host_library`` builds a host source (``csrc/<name>.c``: file parsing;
+``csrc/<name>.cpp``: C++17 host code; no device code in either) the same way
+with the host's compiler (C++ with OpenMP where it links, else without), or
+``nvcc -x c`` / ``-x c++`` where there is none; these are not among the
+kernel libraries ``build_all`` counts.
 """
 
 from __future__ import annotations
@@ -112,40 +114,62 @@ def load(name: str) -> ctypes.CDLL:
 
 
 HOST_C_FLAGS = ["-O3", "-shared", "-fPIC"]
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
-def _host_compiler() -> List[str]:
-    """The command that compiles host C: ``cc`` or ``gcc``, else nvcc taking
-    the file as C."""
-    for cc in ("cc", "gcc"):
+def _host_compilers(lang: str) -> List[List[str]]:
+    """The commands that compile host ``lang`` ("c" or "c++"), in the order
+    to try them: ``cc``/``gcc`` (``g++``/``c++`` with OpenMP first, then
+    without), else nvcc taking the file as C or C++."""
+    names, flags = (("cc", "gcc"), HOST_C_FLAGS) if lang == "c" else (("g++", "c++"),
+                                                                       HOST_CXX_FLAGS)
+    for cc in names:
         found = shutil.which(cc)
         if found:
-            return [found, *HOST_C_FLAGS]
-    return [_nvcc(), "-x", "c", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+            return [[found, *flags]] if lang == "c" else [[found, *flags, "-fopenmp"],
+                                                          [found, *flags]]
+    std = [] if lang == "c" else ["-std=c++17"]
+    return [[_nvcc(), "-x", lang, *std, "-O3", "-shared", "-Xcompiler", "-fPIC"]]
+
+
+def _host_output(name: str, src: Path, cmd: List[str]) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(cmd[1:]).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def host_library(name: str) -> ctypes.CDLL:
-    """The loaded library of the host C source ``csrc/<name>.c``, built first
-    if needed. Raises ``RuntimeError`` where the machine has no compiler or
-    the build fails."""
-    key = f"{name}.c"
+    """The loaded library of the host source ``csrc/<name>.c`` or
+    ``csrc/<name>.cpp``, built first if needed: the first command of
+    ``_host_compilers`` whose library exists, else the first that builds it.
+    The file name carries a hash of the source and the command's flags.
+    Raises ``RuntimeError`` where the machine has no compiler or no command
+    builds it."""
+    key = f"host:{name}"
     with _lock:
         lib = _loaded.get(key)
         if lib is not None:
             return lib
-        src = CSRC / key
-        cmd = _host_compiler()
-        digest = hashlib.sha256(src.read_bytes() + " ".join(cmd[1:]).encode())
-        out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-        if not out.exists():
+        src = CSRC / f"{name}.c"
+        lang = "c"
+        if not src.exists():
+            src, lang = CSRC / f"{name}.cpp", "c++"
+        cmds = _host_compilers(lang)
+        out = next((o for o in (_host_output(name, src, c) for c in cmds) if o.exists()), None)
+        errors = []
+        for cmd in cmds if out is None else []:
+            target = _host_output(name, src, cmd)
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.parent / f"{out.stem}.{os.getpid()}.tmp"
+            tmp = target.parent / f"{target.stem}.{os.getpid()}.tmp"
             done = subprocess.run([*cmd, "-o", str(tmp), str(src)],
                                   capture_output=True, text=True)
-            if done.returncode != 0:
-                raise RuntimeError(f"{cmd[0]} failed for csrc/{key} (exit "
-                                   f"{done.returncode}):\n{done.stdout}{done.stderr}")
-            os.replace(tmp, out)
+            if done.returncode == 0:
+                os.replace(tmp, target)
+                out = target
+                break
+            errors.append(f"{' '.join(cmd)} (exit {done.returncode}):\n"
+                          f"{done.stdout}{done.stderr}")
+        if out is None:
+            raise RuntimeError(f"no host compiler built csrc/{src.name}:\n" + "\n".join(errors))
         lib = _loaded[key] = ctypes.CDLL(str(out))
     return lib
 

@@ -34,6 +34,7 @@ from typing import Tuple
 
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.ops import _build
 
 I32_BIG = 2 ** 31 - 1
@@ -212,7 +213,7 @@ def cell_grid(xyz: torch.Tensor, mask: torch.Tensor, leaf_size):
     cells: ``(coords [N, 3] int32, cmin [3], span [3])``."""
     leaf = torch.broadcast_to(
         torch.as_tensor(leaf_size, dtype=torch.float32, device=xyz.device), (3,))
-    coords = torch.floor(xyz / leaf).to(torch.int32)
+    coords = xla_int32(torch.floor(xyz / leaf))
     cmin = torch.amin(torch.where(mask[:, None], coords, I32_BIG), dim=0)
     cmax = torch.amax(torch.where(mask[:, None], coords, -I32_BIG), dim=0)
     return coords, cmin, torch.clamp(cmax - cmin + 1, min=1)

@@ -27,6 +27,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import _device
 from pcl_tpu_torch.ops.nn1 import _fma32
 
@@ -46,7 +47,7 @@ def _roll(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 def _bins(ang: torch.Tensor) -> torch.Tensor:
     """8 half-orientation bins of ``atan2(...) % pi``."""
     a = torch.remainder(ang, math.pi)
-    return torch.remainder(torch.floor(a / math.pi * _N_BINS).to(torch.int32), _N_BINS)
+    return torch.remainder(xla_int32(torch.floor(a / math.pi * _N_BINS)), _N_BINS)
 
 
 def color_gradient_quantized(rgb, gradient_threshold: float = 10.0, device=None

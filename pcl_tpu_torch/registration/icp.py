@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.core.transforms import transform_cloud, transform_points
 from pcl_tpu_torch.octree.linear import morton_encode
@@ -71,7 +72,7 @@ def _sort_source(table: cell_list.CellTable, sx: torch.Tensor, sm: torch.Tensor,
     else:
         lo = torch.amin(torch.where(sm[:, None], sx, float("inf")), dim=0)
         cell0 = torch.clamp(
-            torch.floor((sx - lo) / float(np.float32(2.0 * max_corr_dist))).to(torch.int32),
+            xla_int32(torch.floor((sx - lo) / float(np.float32(2.0 * max_corr_dist)))),
             0, 1023)
         key = morton_encode(cell0)
     key = torch.where(sm, key, 2 ** 31 - 1)

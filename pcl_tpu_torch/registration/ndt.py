@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pcl_tpu_torch.core import geometry
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import Cloud
 from pcl_tpu_torch.core.transforms import hat, se3_exp, transform_points
 from pcl_tpu_torch.ops import segsum
@@ -175,7 +176,7 @@ def make_score_ops(grid: NDTGrid, offsets: torch.Tensor, res, d1, d2, sm: torch.
         """The one gather from the voxel table per evaluated pose. When the
         full Newton step is accepted, the rows gathered for its trial are the
         next iteration's rows."""
-        nb = torch.floor(p / res).to(torch.int32)[:, None, :] + offsets[None, :, :]
+        nb = xla_int32(torch.floor(p / res))[:, None, :] + offsets[None, :, :]
         b = _hash(nb, grid.table_size).reshape(-1).long()
         qk1, qk2 = _cell_keys(nb.reshape(-1, 3))
         # a bucket owned by another cell than the one probed (hash aliasing)

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import Cloud
 from pcl_tpu_torch.ops.nn1 import _fma32
 from pcl_tpu_torch.ops.segsum import add_rows
@@ -86,7 +87,7 @@ def _one_grid(xy: torch.Tensor, mask: torch.Tensor, res: torch.Tensor, shift, ta
               min_points: int):
     nseg = table_size + 1
     w = mask.to(torch.float32)
-    cc = torch.floor(xy / res + xy.new_tensor(shift)).to(torch.int32)
+    cc = xla_int32(torch.floor(xy / res + xy.new_tensor(shift)))
     h = torch.where(mask, _hash2(cc, table_size), table_size).long()
     pk = _pack2(cc)
     # two distinct occupied cells in one bucket merge into a bogus Gaussian:
@@ -156,7 +157,7 @@ def _score(grid: NDT2DGrid, res, xy_s, sm, p, table_size: int, derivs: bool):
                           xy_s[:, 0] * c - xy_s[:, 1] * s], -1)
         ddq = -(q - p[:2][None, :])
     for k in range(4):
-        cc = torch.floor(q / res + grid.shifts[k][None, :]).to(torch.int32)
+        cc = xla_int32(torch.floor(q / res + grid.shifts[k][None, :]))
         h = _hash2(cc, table_size).long()
         mu = grid.mean[k][h]
         ic = grid.icov[k][h]

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.core.transforms import from_rt, hat
 from pcl_tpu_torch.ops.segsum import add_rows
@@ -134,7 +135,7 @@ def ppf_core(model: Cloud, scene: Cloud, m_idx: torch.Tensor, sr_idx: torch.Tens
     ok = cand_ref >= 0
     d_alpha = alpha_s[:, None] - tbl_alpha[sh]
     a_bin = torch.remainder(
-        torch.floor((d_alpha + math.pi) / (2 * math.pi) * n_alpha).to(torch.int32), n_alpha)
+        xla_int32(torch.floor((d_alpha + math.pi) / (2 * math.pi) * n_alpha)), n_alpha)
     acc_idx = (si[:, None] * n_model + torch.clamp(cand_ref.long(), 0, n_model - 1)) \
         * n_alpha + a_bin
     n_acc = n_scene_ref * n_model * n_alpha

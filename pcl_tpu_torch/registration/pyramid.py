@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.search.cell_list import _M32, _mul32
 
@@ -66,7 +67,7 @@ def build_pyramid(
     tables = []
     for level in range(n_levels):
         n_bins = max(1, 2 ** (n_levels - 1 - level))
-        slots = _hash_bins(torch.floor(rel * n_bins).to(torch.int32), table_size)
+        slots = _hash_bins(xla_int32(torch.floor(rel * n_bins)), table_size)
         tables.append(add_rows(w.new_zeros(table_size), slots, w))
     return FeaturePyramid(tables=torch.stack(tables), n_features=torch.sum(w),
                           n_levels=n_levels, n_dims=d)

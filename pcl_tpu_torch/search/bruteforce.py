@@ -22,7 +22,7 @@ orders ties). Invalid slots have index 0 and ``+inf``.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,18 +97,30 @@ def nn1(
 
 def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` smallest of each row of ``d [Q, L]``, ascending, the lower
-    column first on ties (one stable sort; ``torch.topk`` leaves the order
-    of ties unspecified): ``(values [Q, k], columns [Q, k] int64)``, padded
-    with ``(+inf, 0)`` past ``L``. The kNN lists of every backend take it."""
+    column first on ties, NaN last (``torch.sort(stable=True)``'s first
+    ``k``; ``torch.topk`` leaves the order of ties unspecified): ``(values
+    [Q, k], columns [Q, k] int64)``, padded with ``(+inf, 0)`` past ``L``.
+    The kNN lists of every backend take it. One ``topk`` of unique int64
+    keys, the value's order-preserving bits above the column, costs a
+    partial selection where a sort of every row would cost ``L log L``."""
     kk = min(k, d.shape[1])
-    dd, col = torch.sort(d, dim=1, stable=True)
-    # copies, not views: a view of the first k columns would keep the whole
-    # sorted [Q, L] rows alive, and callers keep one result per query chunk
-    dd, col = dd[:, :kk].clone(), col[:, :kk].clone()
+    v = torch.where(torch.isnan(d), math.nan, d + 0.0)      # one NaN, and no -0.0
+    bits = v.view(torch.int32).to(torch.int64)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)   # negatives in float order
+    key = (bits << 32) | torch.arange(d.shape[1], dtype=torch.int64, device=d.device)
+    col = torch.topk(key, kk, dim=1, largest=False, sorted=True)[0] & 0xFFFFFFFF
+    dd = torch.gather(d, 1, col)
     if kk < k:
         dd = torch.nn.functional.pad(dd, (0, k - kk), value=math.inf)
         col = torch.nn.functional.pad(col, (0, k - kk))
     return dd, col
+
+
+def _chunk(queries: torch.Tensor, chunk: Optional[int]) -> int:
+    """Queries per distance block: ``chunk``, else 1024 on a card and 256 on
+    the CPU, where a block of a few MB stays in cache (twice as fast at
+    14,000 targets as 1024 queries). Blocks do not change results."""
+    return chunk if chunk is not None else (1024 if queries.is_cuda else 256)
 
 
 def knn(
@@ -116,10 +128,11 @@ def knn(
     tmask: torch.Tensor,
     queries: torch.Tensor,
     k: int,
-    chunk: int = 1024,
+    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact k-NN: ``(idx [Q, k] int32, sqdist [Q, k], valid [Q, k])``,
     ascending by distance."""
+    chunk = _chunk(queries, chunk)
     parts = [smallest_k(_chunk_sqdist(queries[s:s + chunk], target, tmask), k)
              for s in range(0, max(queries.shape[0], 1), chunk)]
     dd, idx = (torch.cat(p) for p in zip(*parts))
@@ -132,13 +145,14 @@ def radius(
     queries: torch.Tensor,
     r: float,
     cap: int,
-    chunk: int = 1024,
+    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact radius search with a fixed result cap: ``(idx [Q, cap],
     sqdist [Q, cap], valid [Q, cap], count [Q])``, the ``cap`` nearest within
     ``r`` ascending; ``count`` is the true number within ``r`` and may exceed
     ``cap``."""
     r2 = float(np.float32(r) ** 2)
+    chunk = _chunk(queries, chunk)
     parts = []
     for s in range(0, max(queries.shape[0], 1), chunk):
         d = _chunk_sqdist(queries[s:s + chunk], target, tmask)

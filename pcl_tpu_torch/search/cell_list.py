@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.search.bruteforce import smallest_k
 
 _BIG = 1e30
@@ -45,7 +46,7 @@ _OFFSETS8 = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
 
 
 def _cell_coords(xyz: torch.Tensor, cell_size: torch.Tensor) -> torch.Tensor:
-    return torch.floor(xyz / cell_size).to(torch.int32)
+    return xla_int32(torch.floor(xyz / cell_size))
 
 
 def _mul32(v: torch.Tensor, c: int) -> torch.Tensor:
@@ -110,7 +111,7 @@ def _bucket_of(table: CellTable, coords: torch.Tensor) -> torch.Tensor:
 def _query_coords(table: CellTable, pts: torch.Tensor) -> torch.Tensor:
     """World points -> cell coords in the table's frame."""
     if table.dims is not None:
-        return torch.floor((pts - table.origin) / table.cell_size).to(torch.int32)
+        return xla_int32(torch.floor((pts - table.origin) / table.cell_size))
     return _cell_coords(pts, table.cell_size)
 
 
@@ -139,7 +140,7 @@ def build(
                 - 0.5 * cell_size
         origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
         table_size = dims[0] * dims[1] * dims[2]
-        h = _dense_id(torch.floor((xyz - origin) / cell_size).to(torch.int32), dims)
+        h = _dense_id(xla_int32(torch.floor((xyz - origin) / cell_size)), dims)
     else:
         origin = None
         h = _hash(_cell_coords(xyz, cell_size), table_size)
@@ -203,7 +204,7 @@ def _neighbor_buckets(table: CellTable, queries: torch.Tensor, r=None) -> torch.
         shifted = queries - float(np.float32(r))
         if table.dims is not None:
             shifted = shifted - table.origin
-        base = torch.floor(shifted / table.cell_size).to(torch.int32)
+        base = xla_int32(torch.floor(shifted / table.cell_size))
         offs = torch.tensor(_OFFSETS8, dtype=torch.int32, device=dev)
     return _bucket_of(table, base[:, None, :] + offs[None, :, :])
 

@@ -23,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.core.cloud import ATTR_NORMAL, Cloud
 from pcl_tpu_torch.ops.segsum import add_rows
 from pcl_tpu_torch.surface.reconstruction import surface_nets
@@ -43,7 +44,7 @@ def indicator_grid(xyz: torch.Tensor, mask: torch.Tensor, normals: torch.Tensor,
     R = resolution
     dev = xyz.device
     g = torch.clamp((xyz - grid_min[None, :]) / cell[None, :], 0.0, R - 1.001)
-    i0 = torch.floor(g).to(torch.int64)
+    i0 = xla_int32(torch.floor(g)).to(torch.int64)
     f = g - i0
     w = torch.where(mask, 1.0, 0.0)
     vec = normals * w[:, None]

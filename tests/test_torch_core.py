@@ -193,6 +193,18 @@ class TestGeometry:
                              jgeo.mean_and_covariance(jnp.asarray(x), jnp.asarray(m), jnp.asarray(w))):
             np.testing.assert_allclose(N(got), np.asarray(want), atol=1e-5)
 
+    @pytest.mark.parametrize("axis", [0, 1])
+    def test_masked_mean_takes_the_axis_by_name(self, rng, axis):
+        """F7: ``axis=`` as in the JAX package, on a batched [B, N, 3] input,
+        with a mask of the input's rank and with one along the axis alone."""
+        x = rng.normal(size=(4, 50, 3)).astype(np.float32)
+        masks = (rng.uniform(size=(4, 50, 1)) > 0.3, rng.uniform(size=x.shape[axis]) > 0.3)
+        for m in masks:
+            got = tgeo.masked_mean(T(x), T(m), axis=axis)
+            want = jgeo.masked_mean(jnp.asarray(x), jnp.asarray(m), axis=axis)
+            assert got.shape == want.shape
+            np.testing.assert_allclose(N(got), np.asarray(want), atol=ATOL)
+
     def test_rotation_from_cross_covariance(self, rng):
         H = rng.normal(size=(6, 3, 3)).astype(np.float32)
         # same algorithm, same float32 steps: rotations agree to 1e-5

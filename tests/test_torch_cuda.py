@@ -1400,3 +1400,53 @@ def test_brute_icp_on_voxel_grids_launches_b1(cuda):
     cpu = icp(*(filters.voxel_downsample(make_cloud(a, device="cpu"), 0.1) for a in (src, tgt)),
               max_corr_dist=float("inf"), max_iterations=5)
     assert torch.allclose(res.transform.cpu(), cpu.transform, atol=1e-5)
+
+
+def test_f8_casts_on_the_card(cuda):
+    """F8: torch's own cast of values beyond the int32 range on the card
+    (printed: it was never measured before), and ``xla_int32`` of the same,
+    which saturates and takes NaN to 0 as on the CPU."""
+    from pcl_tpu_torch.core.casts import xla_int32
+
+    x = torch.tensor([3e9, -3e9, float("nan"), 1e20])
+    print(f"card: {x.to(cuda).to(torch.int32).cpu().tolist()}, CPU: {x.to(torch.int32).tolist()}")
+    want = [2147483647, -2147483648, 0, 2147483647]
+    assert xla_int32(x.to(cuda)).cpu().tolist() == xla_int32(x).tolist() == want
+
+
+@pytest.mark.parametrize("far", [3e9, -3e9, 1e20])
+def test_voxel_grid_far_away_launches_b2_and_matches_cpu(cuda, far):
+    """F8 on the card: one valid point far out among 64 near ones; the
+    voxels of the card (B2, once) equal the CPU run's."""
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(-5, 5, (65, 3)).astype(np.float32)
+    xyz[64] = [far, 0.0, 0.0]
+    before = segsum.segment_sum_sorted.launches
+    card = filters.voxel_downsample(make_cloud(xyz, device=cuda), 0.5)
+    cpu = filters.voxel_downsample(make_cloud(xyz, device="cpu"), 0.5)
+    assert segsum.segment_sum_sorted.launches == before + 1
+    assert torch.equal(card.mask.cpu(), cpu.mask)
+    torch.testing.assert_close(card.xyz.cpu(), cpu.xyz, rtol=1e-6, atol=1e-5)
+
+
+def test_native_kdtree_1nn_matches_b1(cuda):
+    """The native host kd-tree (built from ``csrc/pcl_native.cpp`` by the
+    host's compiler) against B1 on a 20,000-point cloud: indices equal off
+    near-ties, squared distances within 1e-6 of ``q^2 + t^2``."""
+    from pcl_tpu_torch import native
+
+    assert native.available()
+    rng = np.random.default_rng(1)
+    t = rng.uniform(-50, 50, (20000, 3)).astype(np.float32)
+    q = rng.uniform(-50, 50, (20000, 3)).astype(np.float32)
+    d2, ii = native.KdTree(t).knn(q, 1)
+    tc, qc = torch.from_numpy(t).to(cuda), torch.from_numpy(q).to(cuda)
+    ik, dk = (x.cpu().numpy() for x in nn1_mod.nn1(tc, torch.ones(len(t), dtype=torch.bool,
+                                                                  device=cuda), qc))
+    scale = (q.astype(np.float64) ** 2).sum(1) + (t[ik].astype(np.float64) ** 2).sum(1)
+    miss = ii[:, 0] != ik
+    if miss.any():
+        da = ((q[miss] - t[ii[miss, 0]]).astype(np.float64) ** 2).sum(1)
+        db = ((q[miss] - t[ik[miss]]).astype(np.float64) ** 2).sum(1)
+        assert (np.abs(da - db) <= 1e-6 * scale[miss]).all()
+    assert (np.abs(d2[:, 0] - dk) <= 1e-6 * scale).all()

@@ -140,8 +140,38 @@ def test_new_modules_are_covered():
                  "tools/pcd_grabber_viewer.py", "tools/pcd_viewer.py", "tools/octree_viewer.py",
                  "tools/obj_rec_ransac_orr_octree.py", "tools/registration_visualizer.py",
                  "tools/concatenate_points_pcd.py", "tools/transform_point_cloud.py",
-                 "tools/pclzf2pcd.py"):
+                 "tools/pclzf2pcd.py", "tools/plyheader.py", "tools/pcd_convert_NaN_nan.py",
+                 "tools/ply2raw.py", "tools/convert_pcd_ascii_binary.py", "tools/converter.py",
+                 "tools/pcd_change_viewpoint.py", "tools/transform_from_viewpoint.py",
+                 "tools/pcd_introduce_nan.py", "tools/demean_cloud.py",
+                 "tools/add_gaussian_noise.py", "tools/passthrough_filter.py",
+                 "tools/uniform_sampling.py", "tools/radius_filter.py",
+                 "tools/outlier_removal.py", "tools/grid_min.py", "tools/local_max.py",
+                 "tools/morph.py", "tools/progressive_morphological_filter.py",
+                 "tools/fast_bilateral_filter.py", "tools/bilateral_upsampling.py",
+                 "tools/plane_projection.py", "tools/cluster_extraction.py",
+                 "tools/extract_feature.py", "tools/train_unary_classifier.py",
+                 "tools/unary_classifier_segment.py", "native/__init__.py", "version.py"):
         assert f"pcl_tpu_torch/{must}" in names
+
+
+# the JAX package's Pallas drivers and the port's modules of their kernels
+KERNEL_COUNTERPARTS = {"ops/pallas_nn.py": "ops/nn1.py", "ops/pallas_segsum.py": "ops/segsum.py"}
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Every ``*.py`` of the JAX package, its tools included, has a file of
+    the same path in the port, but the two Pallas drivers, whose
+    counterparts are the kernels' own modules; so all 97 CLIs are ported."""
+    jax_files = {str(p.relative_to(ROOT / "pcl_tpu")) for p in (ROOT / "pcl_tpu").rglob("*.py")}
+    port_files = {str(p.relative_to(ROOT / "pcl_tpu_torch"))
+                  for p in (ROOT / "pcl_tpu_torch").rglob("*.py")}
+    missing = sorted(f for f in jax_files - port_files if f not in KERNEL_COUNTERPARTS)
+    assert not missing, missing
+    for jax_file, port_file in KERNEL_COUNTERPARTS.items():
+        assert jax_file in jax_files and jax_file not in port_files and port_file in port_files
+    tools = {f for f in jax_files if f.startswith("tools/") and f != "tools/__init__.py"}
+    assert len(tools) == 97 and tools <= port_files
 
 
 def test_registration_exports_the_jax_names():
