@@ -274,6 +274,8 @@ import time
 import numpy as np
 import torch
 
+from pcl_tpu_torch.utils import trace
+
 N_POINTS = 120_000
 NOISE = 0.05
 MOTION_DEG = 0.25
@@ -540,6 +542,12 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def launch_count(kernel: str) -> int:
+    """Launches of ``kernel`` (``"nn1"``: B1, ``"segsum"``: B2) since the
+    recorder was last reset, as the port's recorder counts them."""
+    return trace.counts().get(f"ops.{kernel}.launches", 0)
+
+
 def make_pair(n: int, seed: int = 0):
     """bench.py's pair: target uniform in [-50, 50]^3, source = target plus
     N(0, 0.05^2) noise; the source is then moved by the known motion M.
@@ -780,11 +788,11 @@ def phase2_path_a(nn1_mod, src, tgt, M, record):
     kw = dict(max_corr_dist=math.inf, max_iterations=30)
     icp(source, target, max_iterations=2)          # warm-up (libraries)
 
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     res, secs = timed(lambda: icp(source, target, **kw))
     fit = fitness_score(source, target, res.transform)
     torch.cuda.synchronize()
-    launches = nn1_mod.nn1.launches
+    launches = launch_count("nn1")
     record["launches_by_path"] = {"A": launches}
 
     it = int(res.iterations)
@@ -1026,10 +1034,10 @@ def far_voxels_on_card(segsum):
     _, _, span = segsum.cell_grid(cloud.xyz, cloud.mask, FAR_LEAF)
     n_cells = float(voxel_grid._n_cells(span))
     check(n_cells >= 2 ** 30, f"far clusters span only {n_cells} cells")
-    before = segsum.segment_sum_sorted.launches
+    before = launch_count("segsum")
     on_card = filters.voxel_downsample(cloud, FAR_LEAF)
     torch.cuda.synchronize()
-    launches = segsum.segment_sum_sorted.launches - before
+    launches = launch_count("segsum") - before
     on_cpu = filters.voxel_downsample(
         from_numpy(far, attrs=attrs, capacity=FAR_CAPACITY, device="cpu"), FAR_LEAF)
     check(launches == 1, f"voxel_downsample past 2^30 cells launched B2 {launches} times")
@@ -1250,14 +1258,13 @@ def phase5_path_c(segsum, nn1_mod, scans, golden, record_b1, record_b2):
             for c in raw[:2]]
     icp(warm[1], warm[0], **dict(ICP_KW, max_iterations=2))      # warm-up
 
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     (clouds, poses, results), secs = timed(lambda: front_end(raw, log="phase 5"))
-    launches = segsum.segment_sum_sorted.launches
-    record_b1["launches_by_path"]["C"] = nn1_mod.nn1.launches
+    launches = launch_count("segsum")
+    record_b1["launches_by_path"]["C"] = launch_count("nn1")
     record_b2["launches_by_path"] = {"C": launches}
     print(f"phase 5: path C {N_SCANS} scans in {secs * 1e3:.1f} ms; segsum launches "
-          f"{launches}, nn1 launches {nn1_mod.nn1.launches}", flush=True)
+          f"{launches}, nn1 launches {launch_count('nn1')}", flush=True)
     check(launches == N_SCANS, f"segsum launched {launches} times for {N_SCANS} scans")
     for k, (res, t) in enumerate(results):
         it = int(res.iterations)
@@ -1399,8 +1406,7 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
         gicp(warm[1], warm[0], **dict(GICP_KW, max_iterations=2))
         ndt(warm[1], warm[0], **dict(NDT_KW, max_iterations=2))
 
-        segsum.segment_sum_sorted.launches = 0
-        nn1_mod.nn1.launches = 0
+        trace.reset()
 
         # 2. tools.voxel_grid on each file: one B2 launch each
         ds_files = [os.path.join(tmp, f"ds{i}.pcd") for i in range(len(scans))]
@@ -1408,7 +1414,7 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
             _, secs = timed(lambda: [voxel_grid_tool.main([f, o, "-leaf", str(LEAF)])
                                      for f, o in zip(raw_files, ds_files)])
         print("phase 6: " + out.getvalue().strip().replace("\n", "; "), flush=True)
-        b2_tool = segsum.segment_sum_sorted.launches
+        b2_tool = launch_count("segsum")
         print(f"phase 6: tools.voxel_grid on {len(scans)} files in {secs * 1e3:.1f} ms "
               f"(load, downsample, save), segsum launches {b2_tool}", flush=True)
         check(b2_tool == len(scans), f"tools.voxel_grid launched B2 {b2_tool} times")
@@ -1468,7 +1474,7 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
                 axis * NDT_PRIOR_ERROR[1] / np.linalg.norm(axis)).as_matrix()
             true_steps.append(step)
             priors.append(torch.tensor(off @ step, dtype=torch.float32))
-        b2_before = segsum.segment_sum_sorted.launches
+        b2_before = launch_count("segsum")
         ndt_results = []
 
         def register_ndt(s, t, init):
@@ -1478,7 +1484,7 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
 
         poses, secs = timed(lambda: trajectory.odometry_sequence(
             clouds, register=register_ndt, init_deltas=priors))
-        b2_ndt = segsum.segment_sum_sorted.launches - b2_before
+        b2_ndt = launch_count("segsum") - b2_before
         for k, ((res, t), step) in enumerate(zip(ndt_results, true_steps)):
             it = int(res.iterations)
             left = res.transform.double().cpu().numpy() @ np.linalg.inv(step)
@@ -1510,7 +1516,7 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
         # before it (one B2 launch per downsample and one per grid)
         alley_scans, alley_golden = alley
         alley_raw = [from_numpy(a, capacity=SCAN_CAPACITY) for a in alley_scans]
-        b2_before = segsum.segment_sum_sorted.launches
+        b2_before = launch_count("segsum")
         alley_ds = [filters.voxel_downsample(c, LEAF) for c in alley_raw]
         alley_index = {id(c): i for i, c in enumerate(alley_ds)}
         blind_results = []
@@ -1521,7 +1527,7 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
             return res
 
         poses = trajectory.odometry_sequence(alley_ds, register=register_blind)
-        b2_blind = segsum.segment_sum_sorted.launches - b2_before
+        b2_blind = launch_count("segsum") - b2_before
         for k, (res, t) in enumerate(blind_results):
             step = np.linalg.inv(alley_golden[k]) @ alley_golden[k + 1]
             left_t, left_r = pose_gap(res.transform, torch.from_numpy(step))
@@ -1578,9 +1584,9 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
     M2[:3, 3] = BRUTE_GICP_T
     small_tgt = tgt[:BRUTE_GICP_POINTS]
     small_src = (src[:BRUTE_GICP_POINTS] @ M2[:3, :3].T + M2[:3, 3]).astype(np.float32)
-    b1_before = nn1_mod.nn1.launches
+    b1_before = launch_count("nn1")
     brute, secs = timed(lambda: gicp(make_cloud(small_src), make_cloud(small_tgt)))
-    b1_gicp = nn1_mod.nn1.launches - b1_before
+    b1_gicp = launch_count("nn1") - b1_before
     dt, dang = residual_motion(brute.transform, M2 @ M)
     floor = 5 * NOISE / math.sqrt(BRUTE_GICP_POINTS)
     print(f"phase 6: brute GICP on {BRUTE_GICP_POINTS} noisy points: {int(brute.iterations)} "
@@ -1592,7 +1598,7 @@ def phase6_path_d(segsum, nn1_mod, scans, golden, alley, src, tgt, M, record_b1,
           f"brute GICP missed the motion: {dt} m, {dang} deg")
 
     # the main path's counts end here
-    b1_d, b2_d = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    b1_d, b2_d = launch_count("nn1"), launch_count("segsum")
     check(b2_d == b2_tool + b2_ndt + b2_blind and b1_d == b1_gicp,
           "path D's launch counts do not add up")
     record_b1["launches_by_path"]["D"] = b1_d
@@ -1783,11 +1789,10 @@ def phase7_path_e(segsum, nn1_mod, street, record_b1, record_b2):
     # warm-up of the stages (libraries, allocator) on a quarter of scan 0
     global_front(make_cloud(scans[0][::4]), k=16)
 
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     (tgt, ft, seg0, k, secs0) = global_front(raw[0], log="phase 7: scan 0 (target)")
     (src, fs, seg1, _, secs1) = global_front(raw[1], k=k, log="phase 7: scan 1 (source)")
-    b2 = segsum.segment_sum_sorted.launches
+    b2 = launch_count("segsum")
     for i, seg in enumerate((seg0, seg1)):
         ang, off = plane_error(seg.coefficients)
         print(f"phase 7: scan {i} ground plane: normal {ang:.3e} rad from up, offset "
@@ -1814,9 +1819,9 @@ def phase7_path_e(segsum, nn1_mod, street, record_b1, record_b2):
             ("a prerejective", lambda: ia.prerejective_ransac(skp, fs, tkp, ft, **E_PRE_KW)),
             ("b sac_ia", lambda: ia.sac_ia(skp, fs, tkp, ft, **E_IA_KW)),
             ("c rejector chain", lambda: chain_c(skp, fs, tkp, ft))):
-        before = nn1_mod.nn1.launches
+        before = launch_count("nn1")
         out, gsecs = timed(run)
-        b1[name] = nn1_mod.nn1.launches - before
+        b1[name] = launch_count("nn1") - before
         T = out[0] if name.startswith("c") else out.transform
         ga, gz, gr = residual(T)
         cells = probed_cells(src, tgt, "icp", E_ICP_KW["max_corr_dist"])
@@ -1873,8 +1878,8 @@ def phase7_path_e(segsum, nn1_mod, street, record_b1, record_b2):
               f"inliers {int(v.num_inliers)}, valid {bool(v.is_valid)}, {vsecs * 1e3:.3f} ms",
               flush=True)
         expect(bool(v.is_valid) == accept, f"validate_euclidean judged the {name} pose wrongly")
-    record_b1["launches_by_path"]["E"] = nn1_mod.nn1.launches
-    record_b2["launches_by_path"]["E"] = segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["E"] = launch_count("nn1")
+    record_b2["launches_by_path"]["E"] = launch_count("segsum")
 
     # hash-grid FPFH against brute FPFH on scan 0, where no probed bucket is
     # truncated and the k-th neighbour lies within the cell. At path E's k a
@@ -2107,8 +2112,7 @@ def phase8_path_f(segsum, nn1_mod, street, record_b1, record_b2):
                                                1.0, 64, "cuda", log=lambda s: None)
     lum(torch.eye(4, device="cuda").repeat(2, 1, 1),
         *build_edges_from_correspondences(warm_pairs, 64))
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     voxels, secs = timed(lambda: [live_rows(filters.voxel_downsample(make_cloud(s), F_LEAF))
                                   for s in scans])
     local = [v.xyz.cpu().numpy() for v in voxels]
@@ -2189,11 +2193,11 @@ def phase8_path_f(segsum, nn1_mod, street, record_b1, record_b2):
     print(f"phase 8: (d) tools.lum on {V} PCD files: return code {rc}, {tsecs * 1e3:.1f} ms; "
           f"{out.getvalue().splitlines()[-1]}; max |cloud - (a) round 1| {diff:.3e} m", flush=True)
     expect(rc == 0 and diff <= 1e-5, f"tools.lum differs from (a)'s first round by {diff} m")
-    record_b1["launches_by_path"]["F"] = nn1_mod.nn1.launches
-    record_b2["launches_by_path"]["F"] = segsum.segment_sum_sorted.launches
-    print(f"phase 8: path F launched nn1 {nn1_mod.nn1.launches} times (one per edge and "
-          f"round), segsum {segsum.segment_sum_sorted.launches} times", flush=True)
-    expect(nn1_mod.nn1.launches > 0 and segsum.segment_sum_sorted.launches == V,
+    record_b1["launches_by_path"]["F"] = launch_count("nn1")
+    record_b2["launches_by_path"]["F"] = launch_count("segsum")
+    print(f"phase 8: path F launched nn1 {launch_count('nn1')} times (one per edge and "
+          f"round), segsum {launch_count('segsum')} times", flush=True)
+    expect(launch_count("nn1") > 0 and launch_count("segsum") == V,
            "path F did not launch B1 and B2 as planned")
 
     # B1 at the shape path F gives it: an edge's subsampled points against a scan
@@ -2446,8 +2450,7 @@ def phase9_path_g(segsum, nn1_mod, record_b1, record_b2):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     state = kinfu_init(make_volume(G_RES, G_SIZE, origin=G_ORIGIN), H, W, start)
     poses, lost, step_s = [], [], []
     for f in frames:
@@ -2455,19 +2458,19 @@ def phase9_path_g(segsum, nn1_mod, record_b1, record_b2):
         poses.append(state.pose.double().cpu().numpy())
         lost.append(bool(state.lost))
         step_s.append(secs)
-    record_b1["launches_by_path"]["G"] = nn1_mod.nn1.launches
-    record_b2["launches_by_path"]["G"] = segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["G"] = launch_count("nn1")
+    record_b2["launches_by_path"]["G"] = launch_count("segsum")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ate = trajectory.trajectory_ate(np.stack(poses), golden, align=False)
     ms = np.array(step_s[1:]) * 1e3
     print(f"phase 9: {G_FRAMES} frames at {G_RES}^3: {np.sum(step_s):.2f} s, per frame "
           f"(after the first) mean {ms.mean():.1f} ms, min {ms.min():.1f}, max {ms.max():.1f}; "
           f"lost {sum(lost)}; ATE (unaligned) rmse {ate.rmse:.5f} m, max {ate.max:.5f} m; peak "
-          f"memory {peak:.2f} GiB; launches nn1 {nn1_mod.nn1.launches}, segsum "
-          f"{segsum.segment_sum_sorted.launches} [{card_line()}]", flush=True)
+          f"memory {peak:.2f} GiB; launches nn1 {launch_count('nn1')}, segsum "
+          f"{launch_count('segsum')} [{card_line()}]", flush=True)
     expect(not any(lost), f"frames lost: {[k for k, x in enumerate(lost) if x]}")
     expect(ate.rmse <= G_ATE_LIMIT, f"KinFu ATE {ate.rmse} m over {G_ATE_LIMIT} m")
-    expect(nn1_mod.nn1.launches == 0 and segsum.segment_sum_sorted.launches == 0,
+    expect(launch_count("nn1") == 0 and launch_count("segsum") == 0,
            "path G launched a kernel it does not use")
 
     # the map: surface points against the room, the last raycast's coverage
@@ -2647,10 +2650,10 @@ def phase10_path_h(segsum, nn1_mod, street, alley_scene, c_scans, c_golden, reco
     def part(name, fn):
         """Run one part of the main path: its seconds and its B1 and B2
         launches."""
-        b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+        b1, b2 = launch_count("nn1"), launch_count("segsum")
         out, secs = timed(fn)
-        parts[name] = {"s": secs, "b1": nn1_mod.nn1.launches - b1,
-                       "b2": segsum.segment_sum_sorted.launches - b2}
+        parts[name] = {"s": secs, "b1": launch_count("nn1") - b1,
+                       "b2": launch_count("segsum") - b2}
         return out
 
     def left(T, P):
@@ -2668,8 +2671,7 @@ def phase10_path_h(segsum, nn1_mod, street, alley_scene, c_scans, c_golden, reco
     # warm-up of the stages (libraries, allocator) on a quarter of scan 0
     global_front(make_cloud(raw[0][::4]), k=16)
 
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     tgt, ft, _, k, _ = part("front 0", lambda: global_front(make_cloud(raw[0])))
     src, fs, _, _, _ = part("front 1", lambda: global_front(make_cloud(raw[1]), k=k))
     cells = probed_cells(src, tgt, "icp", E_ICP_KW["max_corr_dist"])
@@ -2840,8 +2842,8 @@ def phase10_path_h(segsum, nn1_mod, street, alley_scene, c_scans, c_golden, reco
           f"{sim:.6f}, of scan 1 with itself {self_sim:.7f}", flush=True)
     expect(abs(self_sim - 1.0) <= 1e-6 and 0.0 < sim < 1.0, "(k) pyramid similarities")
 
-    record_b1["launches_by_path"]["H"] = nn1_mod.nn1.launches
-    record_b2["launches_by_path"]["H"] = segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["H"] = launch_count("nn1")
+    record_b2["launches_by_path"]["H"] = launch_count("segsum")
     print("phase 10: parts (ms, B1, B2): " + "; ".join(
         f"{n} {v['s'] * 1e3:.1f}, {v['b1']}, {v['b2']}" for n, v in parts.items())
         + f" [{card_line()}]", flush=True)
@@ -3032,10 +3034,10 @@ def path_i_run(mesh, d, tag):
 
     def call(name, fn, n):
         mesh.counts.clear()
-        b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+        b1, b2 = launch_count("nn1"), launch_count("segsum")
         r, secs = timed(fn)
-        stats[name] = {"s": secs, "n": n, "b1": nn1_mod.nn1.launches - b1,
-                       "b2": segsum.segment_sum_sorted.launches - b2,
+        stats[name] = {"s": secs, "n": n, "b1": launch_count("nn1") - b1,
+                       "b2": launch_count("segsum") - b2,
                        "collectives": {k: list(v) for k, v in mesh.counts.items()}}
         c = stats[name]
         print(f"{tag}: {name}: {secs * 1e3:.1f} ms, {secs * 1e3 / n:.3f} ms per "
@@ -3194,13 +3196,12 @@ def phase11_path_i(segsum, nn1_mod, scans, golden, src, tgt, M, record_b1, recor
     check(mesh.backend == "nccl" and mesh.shape == {"points": 1},
           f"one rank: backend {mesh.backend}, mesh {mesh.shape}")
     path_i_warmup(mesh, d)
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     out_a, stats_a, vol_a = path_i_run(mesh, d, "phase 11 (a) NCCL, one rank")
-    record_b1["launches_by_path"]["I"] = nn1_mod.nn1.launches
-    record_b2["launches_by_path"]["I"] = segsum.segment_sum_sorted.launches
-    print(f"phase 11: (a) launches B1 {nn1_mod.nn1.launches}, B2 "
-          f"{segsum.segment_sum_sorted.launches} [{card_line()}]", flush=True)
+    record_b1["launches_by_path"]["I"] = launch_count("nn1")
+    record_b2["launches_by_path"]["I"] = launch_count("segsum")
+    print(f"phase 11: (a) launches B1 {launch_count('nn1')}, B2 "
+          f"{launch_count('segsum')} [{card_line()}]", flush=True)
     # B1 once an iteration behind the brute correspondences (path C's ICP takes
     # the cell list), B2 once for NDT's grid
     check(stats_a["icp A"]["b1"] == 30 and stats_a["gicp D"]["b1"] == I_GICP_ITERS
@@ -3471,8 +3472,7 @@ def phase12_path_j(segsum, nn1_mod, scans, golden, record_b1, record_b2):
 
     raw = [from_numpy(s, capacity=SCAN_CAPACITY) for s in scans]
     filter_front(raw[1])                                  # warm-up
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     kept = []
     for i, c in enumerate(raw):
         f, ground, secs = filter_front(c)
@@ -3484,8 +3484,8 @@ def phase12_path_j(segsum, nn1_mod, scans, golden, record_b1, record_b2):
         if i == 0:
             f0, g0 = f, ground
     (clouds, poses, results), secs = timed(lambda: front_end(kept))
-    launches = segsum.segment_sum_sorted.launches
-    record_b1["launches_by_path"]["J"] = nn1_mod.nn1.launches
+    launches = launch_count("segsum")
+    record_b1["launches_by_path"]["J"] = launch_count("nn1")
     record_b2["launches_by_path"]["J"] = launches
     ate = trajectory.trajectory_ate(poses, golden, align=False)
     print(f"phase 12: front end on the filtered scans {secs * 1e3:.1f} ms: voxels "
@@ -4364,14 +4364,11 @@ def kernel_calls(bruteforce, segsum):
         calls["segsum"].append((calls["stage"], vals, seg))
         return kernel_segsum(vals, seg)
 
-    # the wrapper counts its launches under the module's name, ``keep`` here
-    keep.launches = kernel_segsum.launches
     bruteforce.nn1, segsum.segment_sum_sorted = nn1, keep
     try:
         yield calls
     finally:
         bruteforce.nn1, segsum.segment_sum_sorted = kernel_nn1, kernel_segsum
-        kernel_segsum.launches = keep.launches
 
 
 def phase13_path_k(segsum, nn1_mod, street, record_b1, record_b2):
@@ -4400,8 +4397,7 @@ def phase13_path_k(segsum, nn1_mod, street, record_b1, record_b2):
     wk, _ = k_keypoints(wv, wc)
     k_descriptors(wv, torch.nonzero(wk["iss"])[:, 0], gen.manual_seed(0))
 
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     with kernel_calls(bruteforce, segsum) as calls:
         fronts, kps, ksecs = [], [], []
         for i in (0, 1):
@@ -4461,10 +4457,10 @@ def phase13_path_k(segsum, nn1_mod, street, record_b1, record_b2):
               f"true counterpart SHOT {share_shot:.4f}, FPFH {share_fpfh:.4f}", flush=True)
         skp, tkp = src.with_mask(union[1]), tgt.with_mask(union[0])
         calls["stage"] = "prerejective sweep"
-        b1 = nn1_mod.nn1.launches
+        b1 = launch_count("nn1")
         pre, psecs = timed(lambda: ia.prerejective_ransac(skp, shot_all[1], tkp, shot_all[0],
                                                           **E_PRE_KW))
-        b1 = nn1_mod.nn1.launches - b1
+        b1 = launch_count("nn1") - b1
         calls["stage"] = "point-to-plane ICP"
         cells = probed_cells(src, tgt, "icp", E_ICP_KW["max_corr_dist"])
         ref = icp(src, tgt, init_transform=pre.transform, variant="point_to_plane", **E_ICP_KW,
@@ -4531,16 +4527,16 @@ def phase13_path_k(segsum, nn1_mod, street, record_b1, record_b2):
                   f"voxels in both scans: crh_align roll {[round(float(a), 4) for a in ang]} "
                   f"rad, scores {[round(float(x), 5) for x in score]}", flush=True)
 
-    record_b1["launches_by_path"]["K"] = nn1_mod.nn1.launches
-    record_b2["launches_by_path"]["K"] = segsum.segment_sum_sorted.launches
-    print(f"phase 13: path K launched B1 {nn1_mod.nn1.launches} times, B2 "
-          f"{segsum.segment_sum_sorted.launches} times", flush=True)
-    expect(segsum.segment_sum_sorted.launches == 2 + 2 * K_SIFT["n_octaves"],
+    record_b1["launches_by_path"]["K"] = launch_count("nn1")
+    record_b2["launches_by_path"]["K"] = launch_count("segsum")
+    print(f"phase 13: path K launched B1 {launch_count('nn1')} times, B2 "
+          f"{launch_count('segsum')} times", flush=True)
+    expect(launch_count("segsum") == 2 + 2 * K_SIFT["n_octaves"],
            "path K's B2 launches are not one a downsample and one a SIFT octave")
     n_clusters = sum(len(cl) for cl, _ in clusters)
     stages = [c[0] for c in calls["nn1"]]
-    expect(len(calls["nn1"]) == nn1_mod.nn1.launches
-           and len(calls["segsum"]) == segsum.segment_sum_sorted.launches
+    expect(len(calls["nn1"]) == launch_count("nn1")
+           and len(calls["segsum"]) == launch_count("segsum")
            and stages.count("prerejective sweep") == b1
            and sum(s_.startswith("SIFT") for s_ in stages) == 2
            and sum(s_.startswith("ESF") for s_ in stages) == n_clusters,
@@ -4855,17 +4851,16 @@ def phase14_path_l(segsum, nn1_mod, record_b1, record_b2):
     print(f"phase 14: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     with kernel_calls(bruteforce, segsum) as calls:
         (out, secs), total = timed(lambda: path_l_chain(
             frame, L_FULL, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
-    record_b1["launches_by_path"]["L"] = nn1_mod.nn1.launches
-    record_b2["launches_by_path"]["L"] = segsum.segment_sum_sorted.launches
+    record_b1["launches_by_path"]["L"] = launch_count("nn1")
+    record_b2["launches_by_path"]["L"] = launch_count("segsum")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     card = card_line()
     print(f"phase 14: path L in {total:.1f} s, peak memory {peak:.2f} GiB, launches nn1 "
-          f"{nn1_mod.nn1.launches}, segsum {segsum.segment_sum_sorted.launches} [{card}]",
+          f"{launch_count('nn1')}, segsum {launch_count('segsum')} [{card}]",
           flush=True)
     for name, v in secs.items():
         print(f"phase 14: {name}: {v * 1e3:.1f} ms [{card}]", flush=True)
@@ -4873,11 +4868,11 @@ def phase14_path_l(segsum, nn1_mod, record_b1, record_b2):
              for p in ("(a)", "(b)", "(c)", "(d)")}
     print("phase 14: by part " + ", ".join(f"{p} {v:.2f} s" for p, v in parts.items()),
           flush=True)
-    expect(nn1_mod.nn1.launches >= 3 and segsum.segment_sum_sorted.launches >= 1,
+    expect(launch_count("nn1") >= 3 and launch_count("segsum") >= 1,
            "path L launched B1 fewer than 3 times (Hoppe, grid projection, the voxels' 1-NN) "
            "or B2 never (the voxel grid)")
-    expect(len(calls["nn1"]) == nn1_mod.nn1.launches
-           and len(calls["segsum"]) == segsum.segment_sum_sorted.launches,
+    expect(len(calls["nn1"]) == launch_count("nn1")
+           and len(calls["segsum"]) == launch_count("segsum"),
            "the kept kernel calls do not match the launch counts")
 
     m = path_l_metrics(frame, out, L_FULL)
@@ -5445,12 +5440,11 @@ def phase15_path_m(segsum, nn1_mod, scans, golden, record_b1, record_b2):
     print(f"phase 15: warm-up on {M_CPU_POINTS} points of two scans in {wsecs:.1f} s", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     with kernel_calls(bruteforce, segsum) as calls:
         (out, secs), total = timed(lambda: path_m_chain(
             inp, frame_xyz, M_FULL, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
-    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    b1, b2 = launch_count("nn1"), launch_count("segsum")
     record_b1["launches_by_path"]["M"] = b1
     record_b2["launches_by_path"]["M"] = b2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -6159,8 +6153,7 @@ def phase16_path_n(segsum, nn1_mod, record_b1, record_b2):
     print(f"phase 16: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     z = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), N_DRAWS))
     draws = {"orr": [torch.from_numpy(z[k].astype(np.int64)) for k in ("i1", "i2", "mp1")]}
     for k in ("gc", "hough"):
@@ -6176,7 +6169,7 @@ def phase16_path_n(segsum, nn1_mod, record_b1, record_b2):
            f"the rehearsal's draws index {int(z['n_scene'])} scene and "
            f"{int(z['n_model'])} box voxels, the card has {len(out['scene_xyz'])} and "
            f"{len(out['models'][3][0])}")
-    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    b1, b2 = launch_count("nn1"), launch_count("segsum")
     record_b1["launches_by_path"]["N"] = b1
     record_b2["launches_by_path"]["N"] = b2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -7095,12 +7088,11 @@ def phase17_path_o(segsum, nn1_mod, record_b1, record_b2):
     print(f"phase 17: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     with kernel_calls(bruteforce, segsum) as calls:
         (out, secs), total = timed(lambda: path_o_chain(
             inp, O, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
-    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    b1, b2 = launch_count("nn1"), launch_count("segsum")
     record_b1["launches_by_path"]["O"] = b1
     record_b2["launches_by_path"]["O"] = b2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -7853,12 +7845,11 @@ def phase18_path_p(segsum, nn1_mod, record_b1, record_b2):
     print(f"phase 18: warm-up at 80 x 60 in {wsecs:.1f} s", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    segsum.segment_sum_sorted.launches = 0
-    nn1_mod.nn1.launches = 0
+    trace.reset()
     with kernel_calls(bruteforce, segsum) as calls:
         (out, secs), total = timed(lambda: path_p_chain(
             inp, P, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
-    b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+    b1, b2 = launch_count("nn1"), launch_count("segsum")
     record_b1["launches_by_path"]["P"] = b1
     record_b2["launches_by_path"]["P"] = b2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -8759,12 +8750,11 @@ def phase19_path_q(segsum, nn1_mod, record_b1, record_b2):
         print(f"phase 19: inputs in {isecs:.1f} s", flush=True)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        segsum.segment_sum_sorted.launches = 0
-        nn1_mod.nn1.launches = 0
+        trace.reset()
         with kernel_calls(bruteforce, segsum) as calls:
             (out, secs), total = timed(lambda: path_q_chain(
                 inp, Q, dev, on_stage=lambda n: calls.__setitem__("stage", n)))
-        b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+        b1, b2 = launch_count("nn1"), launch_count("segsum")
         record_b1["launches_by_path"]["Q"] = b1
         record_b2["launches_by_path"]["Q"] = b2
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -9352,18 +9342,17 @@ def phase20_path_r(segsum, nn1_mod, scans, golden, record_b1, record_b2):
         # the main path
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        segsum.segment_sum_sorted.launches = 0
-        nn1_mod.nn1.launches = 0
+        trace.reset()
         starts = {}
 
         def on_step(name):
             calls["stage"] = name
-            starts[name] = (nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches)
+            starts[name] = (launch_count("nn1"), launch_count("segsum"))
 
         with kernel_calls(bruteforce, segsum) as calls:
             res, total = timed(lambda: path_r_chain(inp, d["card"], port_runner(dev),
                                                     on_step=on_step))
-        b1, b2 = nn1_mod.nn1.launches, segsum.segment_sum_sorted.launches
+        b1, b2 = launch_count("nn1"), launch_count("segsum")
         record_b1["launches_by_path"]["R"] = b1
         record_b2["launches_by_path"]["R"] = b2
         peak = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -24,6 +24,7 @@ import torch
 
 from pcl_tpu_torch.core.cloud import Cloud
 from pcl_tpu_torch.ops import segsum
+from pcl_tpu_torch.utils import trace
 
 # the dense id is used below this many bounding-box cells (int32-exact with
 # ample margin for the float32 product that tests it)
@@ -44,7 +45,9 @@ def _sorted_cell_segments(
     (invalid points get ``N - 1``) and ``first`` flags each cell's first
     point. Equal cells keep their original order."""
     coords, cmin, span = segsum.cell_grid(xyz, mask, leaf_size)
-    if bool(_n_cells(span) < _DENSE_CELLS):
+    with trace.readback("voxel_dense_test"):
+        dense = bool(_n_cells(span) < _DENSE_CELLS)
+    if dense:
         keys = segsum.linear_cell_ids(coords, cmin, span, mask)[:, None]
     else:
         keys = coords           # lexicographic (z, y, x): z most significant

@@ -10,9 +10,10 @@ Counterpart of ``pcl_tpu/ops/pallas_nn.py`` (the Pallas kernel
   ``+inf`` (index 0) where no target is valid.
 
 :func:`nn1` is the wrapper: on CUDA tensors it launches the kernel (and
-counts the launch in ``nn1.launches``), on CPU tensors it runs
-:func:`nn1_plain`. Nothing falls back from one to the other. The kernel
-searches the targets in slices, so that few queries still fill the card;
+counts the launch under ``ops.nn1.launches`` in ``utils/trace.py``'s
+recorder), on CPU tensors it runs :func:`nn1_plain`. Nothing falls back
+from one to the other. The kernel searches the targets in slices, so that
+few queries still fill the card;
 :func:`nn1_plan` chooses how many, and the wrapper allocates the scratch
 ``[slices, Q]`` that the kernel's merge pass reads.
 
@@ -32,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from pcl_tpu_torch.ops import _build
+from pcl_tpu_torch.utils import trace
 
 _BIG = 1e30
 # nn1_plain's score matrix holds at most this many entries per chunk
@@ -215,8 +217,5 @@ def nn1(
                           idx.data_ptr(), d2.data_ptr(), _build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"nn1 kernel launch failed: cudaError {err}")
-    nn1.launches += 1
+    trace.count("ops.nn1.launches")
     return idx, d2
-
-
-nn1.launches = 0

@@ -20,8 +20,9 @@ Contract, shared by both versions of :func:`segment_sum_sorted`:
   the two agree to rounding, ``1e-6 * sum|v|``.
 
 :func:`segment_sum_sorted` is the wrapper: on CUDA tensors it launches the
-kernel (and counts the launch in ``segment_sum_sorted.launches``), on CPU
-tensors it runs :func:`segment_sum_sorted_plain`. Nothing falls back from one
+kernel (and counts the launch under ``ops.segsum.launches`` in
+``utils/trace.py``'s recorder), on CPU tensors it runs
+:func:`segment_sum_sorted_plain`. Nothing falls back from one
 to the other. The kernel has no width limit (the TPU kernel's ``W <= 120``
 was a lane limit).
 """
@@ -36,6 +37,7 @@ import torch
 
 from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.ops import _build
+from pcl_tpu_torch.utils import trace
 
 I32_BIG = 2 ** 31 - 1
 # csrc/segsum.cu's kSeq: up to this many rows one thread adds alone, in row order
@@ -147,11 +149,8 @@ def segment_sum_sorted(vals: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
                              _build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"segsum kernel launch failed: cudaError {err}")
-    segment_sum_sorted.launches += 1
+    trace.count("ops.segsum.launches")
     return out
-
-
-segment_sum_sorted.launches = 0
 
 
 def sort_segments(
@@ -211,8 +210,12 @@ def cell_grid(xyz: torch.Tensor, mask: torch.Tensor, leaf_size):
     """Integer cell coordinates ``floor(xyz / leaf)`` (float32 division per
     axis, ``leaf_size`` scalar or ``[3]``) and the masked bounding box of the
     cells: ``(coords [N, 3] int32, cmin [3], span [3])``."""
-    leaf = torch.broadcast_to(
-        torch.as_tensor(leaf_size, dtype=torch.float32, device=xyz.device), (3,))
+    if isinstance(leaf_size, torch.Tensor):
+        leaf = leaf_size.to(device=xyz.device, dtype=torch.float32)
+    else:
+        with trace.readback("leaf_size"):      # a host number's copy waits for the stream
+            leaf = torch.as_tensor(leaf_size, dtype=torch.float32, device=xyz.device)
+    leaf = torch.broadcast_to(leaf, (3,))
     coords = xla_int32(torch.floor(xyz / leaf))
     cmin = torch.amin(torch.where(mask[:, None], coords, I32_BIG), dim=0)
     cmax = torch.amax(torch.where(mask[:, None], coords, -I32_BIG), dim=0)

@@ -28,6 +28,7 @@ from pcl_tpu_torch.core.transforms import hat, se3_exp, transform_points
 from pcl_tpu_torch.features.shot import _rgb_to_lab
 from pcl_tpu_torch.ops import batch33
 from pcl_tpu_torch.search import bruteforce, cell_list
+from pcl_tpu_torch.utils import trace
 
 
 # the JAX package's ``gicp._skew`` (``registration/graph.py`` imports it) is the
@@ -69,12 +70,15 @@ def regularized_covariances(
                                 dims=grid_dims)
         idx, _, valid, trunc = cell_list.knn_radius(table, xyz, k)
         trunc_any = torch.any(trunc & mask)
+        if trace.enabled():
+            trace.count("cell_list.valid_rows", torch.sum(mask))
     else:
         idx, _, valid = bruteforce.knn(xyz, mask, xyz, k)
     nbr = xyz[torch.clamp(idx.long(), 0, xyz.shape[0] - 1)]
     _, cov, cnt = geometry.mean_and_covariance(nbr, valid & mask[:, None])
     _, V = geometry.eigh33(cov)
-    d = torch.tensor([epsilon, 1.0, 1.0], dtype=cov.dtype, device=cov.device)
+    with trace.readback("cov_diag"):           # a copy from host memory waits for the stream
+        d = torch.tensor([epsilon, 1.0, 1.0], dtype=cov.dtype, device=cov.device)
     C = torch.einsum("nik,k,njk->nij", V, d, V)
     ok = (cnt >= 3.0) & mask
     C = torch.where(ok[:, None, None], C, torch.eye(3, dtype=cov.dtype, device=cov.device))
@@ -136,22 +140,28 @@ def _gicp_loop(source, target, init_transform, find, Cs, Ct, trunc0,
     trunc = trunc0
     it = 0
     while it < max_iterations:
-        idx, d2, trunc_new = find(transform_points(T, sx))
-        valid = sm & torch.isfinite(d2)
-        w = valid.to(torch.float32)
-        idxc = torch.clamp(idx.long(), 0, target.capacity - 1)
-        M = _pair_information(Ct[idxc], Cs, T[:3, :3], w)
-        T, xis = _mahalanobis_gn(T, sx, tx[idxc], M, inner_iterations)
-        # d2 is +inf for an unmatched point: select, do not weigh
-        mse = torch.sum(torch.where(valid, d2, 0.0)) / torch.clamp(torch.sum(w), min=1.0)
-        done = torch.linalg.norm(xis[-1]) < transformation_eps
-        trunc = trunc | trunc_new
-        it += 1
-        if bool(done):                                # the one read-back
+        with trace.span("gicp.iteration"):
+            with trace.span("gicp.correspond"):
+                idx, d2, trunc_new = find(transform_points(T, sx))
+            with trace.span("gicp.solve"):
+                valid = sm & torch.isfinite(d2)
+                w = valid.to(torch.float32)
+                idxc = torch.clamp(idx.long(), 0, target.capacity - 1)
+                M = _pair_information(Ct[idxc], Cs, T[:3, :3], w)
+                T, xis = _mahalanobis_gn(T, sx, tx[idxc], M, inner_iterations)
+                # d2 is +inf for an unmatched point: select, do not weigh
+                mse = torch.sum(torch.where(valid, d2, 0.0)) / torch.clamp(torch.sum(w), min=1.0)
+                done = torch.linalg.norm(xis[-1]) < transformation_eps
+                trunc = trunc | trunc_new
+            it += 1
+            with trace.readback("gicp_converged"):    # the one value read back
+                stop = bool(done)
+        if stop:
             break
-    return GICPResult(transform=T, converged=done,
-                      iterations=torch.tensor(it, dtype=torch.int32, device=dev),
-                      fitness=mse, truncated=trunc)
+    with trace.readback("gicp_iterations"):
+        its = torch.tensor(it, dtype=torch.int32, device=dev)
+    return GICPResult(transform=T, converged=done, iterations=its, fitness=mse,
+                      truncated=trunc)
 
 
 def _use_cells(corr_backend: str, max_corr_dist: float, source: Cloud, target: Cloud) -> bool:
@@ -192,8 +202,10 @@ def gicp(
     cov_kw = dict(backend="cell" if corr_backend == "cell" else "auto",
                   cell_cap=cov_cell_cap, grid_dims=cov_grid_dims,
                   cell_size=cov_cell_size, with_trunc=True)
-    Cs, trunc_cs = regularized_covariances(sx, sm, k_covariances, epsilon, **cov_kw)
-    Ct, trunc_ct = regularized_covariances(tx, tm, k_covariances, epsilon, **cov_kw)
+    with trace.span("gicp.covariances"):
+        Cs, trunc_cs = regularized_covariances(sx, sm, k_covariances, epsilon, **cov_kw)
+    with trace.span("gicp.covariances"):
+        Ct, trunc_ct = regularized_covariances(tx, tm, k_covariances, epsilon, **cov_kw)
 
     if _use_cells(corr_backend, max_corr_dist, source, target):
         table = cell_list.build(tx, tm, np.float32(2.0 * max_corr_dist),
@@ -201,6 +213,8 @@ def gicp(
 
         def find(src_t):
             idx, d2, trunc = cell_list.nn1_radius(table, src_t, max_corr_dist, compact=True)
+            if trace.enabled():
+                trace.count("cell_list.valid_rows", torch.sum(sm))
             return idx, d2, torch.any(trunc & sm)
     else:
         max_d2 = float(np.float32(max_corr_dist) ** 2)

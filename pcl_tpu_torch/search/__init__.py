@@ -22,6 +22,7 @@ import torch
 from pcl_tpu_torch.core.cloud import Cloud
 from pcl_tpu_torch.search import bruteforce, cell_list, hashgrid, organized
 from pcl_tpu_torch.search.hashgrid import HashGrid, build as build_hashgrid
+from pcl_tpu_torch.utils import trace
 
 __all__ = ["bruteforce", "cell_list", "hashgrid", "HashGrid", "build_hashgrid", "organized",
            "knn", "radius_search", "nn1", "knn_density_radius", "auto_cell_params",
@@ -64,7 +65,11 @@ def _occupancy_cap(x: np.ndarray, r: float, limit: int) -> int:
 def _host_points(target) -> np.ndarray:
     """The valid points of a Cloud or ``[N, 3]`` tensor, as a host array."""
     xyz, mask = _unpack(target)
-    return xyz.detach().cpu().numpy()[mask.detach().cpu().numpy()]
+    with trace.readback("host_points"):
+        x = xyz.detach().cpu().numpy()
+    with trace.readback("host_points"):
+        m = mask.detach().cpu().numpy()
+    return x[m]
 
 
 def auto_cell_params(target, k: int, cell_size: Optional[float] = None,
@@ -77,17 +82,19 @@ def auto_cell_params(target, k: int, cell_size: Optional[float] = None,
     default of every search that builds one), as a power-of-two multiple of
     24 up to ``limit``. The JAX package counts cells, not buckets: two
     occupied cells that share a bucket can overflow its cap."""
-    x = _host_points(target)
-    if len(x) <= k + 1:
-        return (float(cell_size) if cell_size is not None else 1.0, 24)
-    if cell_size is None:
-        from scipy.spatial import cKDTree
-        step = max(1, len(x) // sample)
-        d, _ = cKDTree(x).query(x[::step], k + 1)
-        r = max(float(np.percentile(d[:, -1], 95.0)), 1e-6)
-    else:
-        r = float(cell_size)
-    return r, _occupancy_cap(x, r, limit)
+    trace.count("search.probe_calls")
+    with trace.span("search.auto_cell_params"):
+        x = _host_points(target)
+        if len(x) <= k + 1:
+            return (float(cell_size) if cell_size is not None else 1.0, 24)
+        if cell_size is None:
+            from scipy.spatial import cKDTree
+            step = max(1, len(x) // sample)
+            d, _ = cKDTree(x).query(x[::step], k + 1)
+            r = max(float(np.percentile(d[:, -1], 95.0)), 1e-6)
+        else:
+            r = float(cell_size)
+        return r, _occupancy_cap(x, r, limit)
 
 
 def auto_cell_cap(target, k: int, cell_size: Optional[float] = None,

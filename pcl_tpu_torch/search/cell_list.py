@@ -34,6 +34,7 @@ import torch
 
 from pcl_tpu_torch.core.casts import xla_int32
 from pcl_tpu_torch.search.bruteforce import smallest_k
+from pcl_tpu_torch.utils import trace
 
 _BIG = 1e30
 _M32 = 0xFFFFFFFF
@@ -132,7 +133,11 @@ def build(
     up to 2^24 points."""
     n = xyz.shape[0]
     dev = xyz.device
-    cell_size = torch.as_tensor(cell_size, dtype=torch.float32, device=dev)
+    if isinstance(cell_size, torch.Tensor):
+        cell_size = cell_size.to(device=dev, dtype=torch.float32)
+    else:
+        with trace.readback("cell_size"):      # a host number's copy waits for the stream
+            cell_size = torch.as_tensor(cell_size, dtype=torch.float32, device=dev)
     if dims is not None:
         dims = tuple(int(d) for d in dims)
         if origin is None:
@@ -196,16 +201,17 @@ def _neighbor_buckets(table: CellTable, queries: torch.Tensor, r=None) -> torch.
     cells around its own (``r`` None, valid when cell_size >= r), or the
     2x2x2 block anchored at ``floor((q - r) / cell)`` (valid when
     cell_size >= 2r)."""
-    dev = queries.device
     if r is None:
         base = _query_coords(table, queries)
-        offs = torch.tensor(_OFFSETS27, dtype=torch.int32, device=dev)
     else:
         shifted = queries - float(np.float32(r))
         if table.dims is not None:
             shifted = shifted - table.origin
         base = xla_int32(torch.floor(shifted / table.cell_size))
-        offs = torch.tensor(_OFFSETS8, dtype=torch.int32, device=dev)
+    # a copy from host memory, which waits for the device's stream
+    with trace.readback("cell_offsets"):
+        offs = torch.tensor(_OFFSETS27 if r is None else _OFFSETS8, dtype=torch.int32,
+                            device=queries.device)
     return _bucket_of(table, base[:, None, :] + offs[None, :, :])
 
 
@@ -242,6 +248,8 @@ def nn1_radius(
     being ordered by neighbour offset and then by original index. Queries are
     processed in chunks of at most ``_CHUNK_SLOTS`` candidate slots."""
     n_off = 8 if compact else 27
+    trace.count("cell_list.rows", queries.shape[0])
+    trace.count("cell_list.nn1.slots", queries.shape[0] * n_off * table.cap)
     idx, d2, trunc, dst = _by_chunks(lambda q: _nn1_radius_chunk(table, q, r, compact),
                                      queries, n_off * table.cap)
     if with_dst:
@@ -320,6 +328,8 @@ def knn_radius(table: CellTable, queries: torch.Tensor, k: int, r=None):
         dd, idx = _select_k(d2, idxf, k)
         return idx, dd, torch.isfinite(dd), truncated
 
+    trace.count("cell_list.rows", queries.shape[0])
+    trace.count("cell_list.knn.slots", queries.shape[0] * 27 * table.cap)
     return _by_chunks(chunk, queries, 27 * table.cap)
 
 

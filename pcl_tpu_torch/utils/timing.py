@@ -3,17 +3,14 @@
 Counterpart of ``pcl_tpu/utils/timing.py``: ``StopWatch``, the ``ScopeTime``
 context manager and the ``EventFrequency`` meter are host clocks; a caller
 that times device work synchronises first (``torch.cuda.synchronize()``).
-``time_call`` is the counterpart of the JAX package's ``time_jitted``, and
-``time_jitted`` names the same function: it synchronises the device around
-every timed call.
+The JAX package's ``time_jitted`` has no counterpart: the port's spans and
+counters are ``utils/trace.py``'s.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Optional
-
-import torch
 
 
 class StopWatch:
@@ -66,26 +63,3 @@ class EventFrequency:
         span = self._stamps[-1] - self._stamps[0]
         return (len(self._stamps) - 1) / span if span > 0 else 0.0
 
-
-def _sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-def time_call(fn, *args, iters: int = 10, warmup: int = 2) -> float:
-    """Median wall ms per call of ``fn(*args)``, the device synchronised
-    before the clock starts and before it stops."""
-    for _ in range(warmup):
-        fn(*args)
-    times = []
-    for _ in range(iters):
-        _sync()
-        t0 = time.perf_counter()
-        fn(*args)
-        _sync()
-        times.append((time.perf_counter() - t0) * 1e3)
-    times.sort()
-    return times[len(times) // 2]
-
-
-time_jitted = time_call

@@ -292,11 +292,6 @@ def test_package_level_names_are_the_jax_packages(package):
     assert all(hasattr(port, name) for name in jax_all)
 
 
-def test_time_jitted_is_time_call():
-    timing = importlib.import_module("pcl_tpu_torch.utils.timing")
-    assert timing.time_jitted is timing.time_call
-
-
 def _port_imports(package: str):
     path = ROOT / "pcl_tpu_torch" / package / "__init__.py"
     return [a.asname or a.name for node in ast.parse(path.read_text()).body

@@ -16,6 +16,7 @@ from pcl_tpu.search import bruteforce as jbf
 
 from pcl_tpu_torch.ops import nn1 as tnn1
 from pcl_tpu_torch.search import bruteforce as tbf
+from pcl_tpu_torch.utils import trace
 
 
 def _case(rng, kind):
@@ -71,10 +72,10 @@ def test_plain_matches_pallas_interpret(rng, kind):
 def test_wrapper_on_cpu_is_plain(rng, kind):
     t, m, q = _case(rng, kind)
     args = (torch.from_numpy(t), torch.from_numpy(m), torch.from_numpy(q))
-    before = tnn1.nn1.launches
+    before = trace.counts().get("ops.nn1.launches", 0)
     for got, want in zip(tbf.nn1(*args), tnn1.nn1_plain(*args)):
         assert torch.equal(got, want)
-    assert tnn1.nn1.launches == before        # no kernel launch on the CPU
+    assert trace.counts().get("ops.nn1.launches", 0) == before   # no kernel launch on the CPU
 
 
 @pytest.mark.parametrize("kind", ["ragged", "masked", "one_valid"])

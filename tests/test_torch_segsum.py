@@ -20,6 +20,7 @@ from pcl_tpu.ops import pallas_segsum as jseg
 
 from pcl_tpu_torch.core.cloud import make_cloud
 from pcl_tpu_torch.ops import segsum
+from pcl_tpu_torch.utils import trace
 
 U32 = 2.0 ** -24
 
@@ -58,9 +59,9 @@ def test_segment_sum_sorted_matches_interpreted_kernel(rng, n, p_new, tail):
     vals[nvalid:] = 0.0
     want = np.asarray(jseg.segment_sum_sorted(jnp.asarray(vals), jnp.asarray(seg),
                                               chunk=256, interpret=True))
-    before = segsum.segment_sum_sorted.launches
+    before = trace.counts().get("ops.segsum.launches", 0)
     got = segsum.segment_sum_sorted(torch.from_numpy(vals), torch.from_numpy(seg)).numpy()
-    assert segsum.segment_sum_sorted.launches == before      # CPU: the plain version
+    assert trace.counts().get("ops.segsum.launches", 0) == before   # CPU: the plain version
     live = seg[nvalid - 1] + 1          # the JAX kernel leaves rows past these undefined
     tol = _tol(vals, seg, n)
     assert np.all(np.abs(got[:live] - want[:live]) <= tol[:live])
